@@ -1,0 +1,150 @@
+"""ctypes bindings for the native C++ runtime kernels (lecturemath_native.cpp).
+
+The library is built on demand with g++ (cached next to the source); every
+entry point has a pure-Python fallback elsewhere in the package, so the
+framework works without a compiler — just slower on the host-side CC path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+_THIS_DIR = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(_THIS_DIR, "lecturemath_native.cpp")
+_LIB_PATH = os.path.join(_THIS_DIR, "liblecturemath_native.so")
+
+_lib: Optional[ctypes.CDLL] = None
+_load_failed = False
+
+
+def build(force: bool = False) -> str:
+    """Compile the native library (g++ -O3); returns the .so path."""
+    if force or not os.path.exists(_LIB_PATH) or (
+            os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SRC)):
+        subprocess.run(
+            ["g++", "-O3", "-march=native", "-shared", "-fPIC", _SRC,
+             "-o", _LIB_PATH], check=True)
+    return _LIB_PATH
+
+
+def get_lib() -> Optional[ctypes.CDLL]:
+    """Load (building if needed); returns None when unavailable."""
+    global _lib, _load_failed
+    if _lib is not None or _load_failed:
+        return _lib
+    try:
+        lib = ctypes.CDLL(build())
+    except (OSError, subprocess.CalledProcessError, FileNotFoundError):
+        _load_failed = True
+        return None
+
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    f32p = ctypes.POINTER(ctypes.c_float)
+
+    lib.label_and_stats.argtypes = [u8p, ctypes.c_int32, ctypes.c_int32,
+                                    f32p, i32p, i32p, f32p, ctypes.c_int32]
+    lib.label_and_stats.restype = ctypes.c_int32
+
+    lib.batch_mask_overlap.argtypes = [u8p, i64p, i32p, u8p, i64p, i32p,
+                                       i32p, ctypes.c_int64, i64p]
+    lib.batch_mask_overlap.restype = None
+
+    lib.render_masks.argtypes = [u8p, i64p, i32p, ctypes.c_int32, u8p,
+                                 ctypes.c_int32, ctypes.c_int32]
+    lib.render_masks.restype = None
+
+    _lib = lib
+    return _lib
+
+
+def available() -> bool:
+    return get_lib() is not None
+
+
+# ------------------------------------------------------------------ wrappers
+
+def _ptr(array: np.ndarray, ctype):
+    return array.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def label_and_stats(binary: np.ndarray, ages: Optional[np.ndarray] = None,
+                    max_components: int = 1 << 16):
+    """Label a binary frame + per-CC stats in one native call.
+
+    Returns (labels int32 [H,W], stats int32 [n,5] = min_x,max_x,min_y,
+    max_y,size, min_ages float32 [n]).
+    """
+    lib = get_lib()
+    assert lib is not None, "native library unavailable"
+    binary = np.ascontiguousarray(binary, dtype=np.uint8)
+    h, w = binary.shape
+    labels = np.empty((h, w), dtype=np.int32)
+    stats = np.empty((max_components, 5), dtype=np.int32)
+    min_ages = np.empty(max_components, dtype=np.float32)
+
+    if ages is not None:
+        ages = np.ascontiguousarray(ages, dtype=np.float32)
+        ages_ptr = _ptr(ages, ctypes.c_float)
+    else:
+        ages_ptr = ctypes.cast(None, ctypes.POINTER(ctypes.c_float))
+
+    count = lib.label_and_stats(_ptr(binary, ctypes.c_uint8), h, w, ages_ptr,
+                                _ptr(labels, ctypes.c_int32),
+                                _ptr(stats, ctypes.c_int32),
+                                _ptr(min_ages, ctypes.c_float),
+                                max_components)
+    count = min(count, max_components)
+    return labels, stats[:count].copy(), min_ages[:count].copy()
+
+
+class PackedMasks:
+    """CC mask crops packed into one buffer for native batch calls."""
+
+    def __init__(self, ccs: Sequence):
+        self.n = len(ccs)
+        self.boxes = np.array([[cc.min_x, cc.max_x, cc.min_y, cc.max_y]
+                               for cc in ccs], dtype=np.int32).reshape(-1, 4)
+        sizes = [cc.img.size for cc in ccs]
+        self.offsets = np.zeros(self.n, dtype=np.int64)
+        if self.n:
+            self.offsets[1:] = np.cumsum(sizes[:-1])
+        total = int(sum(sizes))
+        self.data = np.empty(total, dtype=np.uint8)
+        for offset, cc in zip(self.offsets, ccs):
+            flat = np.ascontiguousarray(cc.img, dtype=np.uint8).reshape(-1)
+            self.data[offset:offset + flat.size] = flat
+
+
+def batch_overlap(packed_a: PackedMasks, packed_b: PackedMasks,
+                  pairs: np.ndarray) -> np.ndarray:
+    """Matched-pixel counts (int64 [P]) for candidate index pairs."""
+    lib = get_lib()
+    assert lib is not None, "native library unavailable"
+    pairs = np.ascontiguousarray(pairs, dtype=np.int32).reshape(-1, 2)
+    out = np.empty(len(pairs), dtype=np.int64)
+    lib.batch_mask_overlap(
+        _ptr(packed_a.data, ctypes.c_uint8), _ptr(packed_a.offsets, ctypes.c_int64),
+        _ptr(packed_a.boxes, ctypes.c_int32),
+        _ptr(packed_b.data, ctypes.c_uint8), _ptr(packed_b.offsets, ctypes.c_int64),
+        _ptr(packed_b.boxes, ctypes.c_int32),
+        _ptr(pairs, ctypes.c_int32), len(pairs),
+        _ptr(out, ctypes.c_int64))
+    return out
+
+
+def render_masks(packed: PackedMasks, height: int, width: int) -> np.ndarray:
+    lib = get_lib()
+    assert lib is not None, "native library unavailable"
+    frame = np.zeros((height, width), dtype=np.uint8)
+    lib.render_masks(_ptr(packed.data, ctypes.c_uint8),
+                     _ptr(packed.offsets, ctypes.c_int64),
+                     _ptr(packed.boxes, ctypes.c_int32), packed.n,
+                     _ptr(frame, ctypes.c_uint8), height, width)
+    return frame

@@ -1,0 +1,574 @@
+"""Stage 01 — batched FCN binarization of sampled lecture frames on the card.
+
+Frames stream in fixed batches through FCNLectureNet (bf16, channels_last,
+BatchNorm folded) and kernel K1, which leaves one packed bitmap per frame on
+the device. Each bitmap is copied into reused pinned host memory on a side
+stream, so the copy of batch k overlaps the compute of batch k+1, and the
+host unpacks it when the copy's CUDA event has fired.
+
+Polarity: the raw model output follows the training GT (ink=0 on a 255
+background); the stage artifact is inverted to ink=255 exactly like the
+reference worker (FCN_lecturenet_binarizer.py:54) so downstream CC labeling
+sees foreground ink as nonzero.
+"""
+
+from __future__ import annotations
+
+import queue
+from typing import List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..core.config import Config
+from ..core.device import resolve_device
+from ..models.convert import load_checkpoint
+from ..models.fcn_lecturenet import (FCNConfig, FCNLectureNet, fold_model,
+                                     init_weights, make_binarizer,
+                                     make_packed_binarizer, unpack_bits_host)
+from .video import VideoFrameSource
+
+MAX_BATCH = 96
+# device bytes per model pixel for a batch: the production-width forward in
+# bf16 keeps about 450 B/px of activations live at its peak (up_1's skip,
+# deconv and concat at full resolution), plus the f32 input and the
+# allocator's slack
+_BYTES_PER_PIXEL = 768
+# the CPU has no memory query: the JAX package's pixel budget for a local chip
+_CPU_PIXEL_BUDGET = 48_000_000
+
+
+def resolve_model_size(width: int, height: int,
+                       max_pixels: int = 2_500_000) -> Tuple[int, int]:
+    """Halve dimensions while the pixel count exceeds the cap (reference:
+    FCN_lecturenet.py:434-437). Returns the (width, height) the model sees."""
+    while width * height > max_pixels:
+        width = int(width / 2)
+        height = int(height / 2)
+    return width, height
+
+
+def default_batch_size(width: int, height: int, device: torch.device,
+                       max_batch: int = MAX_BATCH) -> int:
+    """Frames per batch: on the card, what fits in 60% of its free memory
+    at ``_BYTES_PER_PIXEL``; on the CPU, a fixed pixel budget. Capped at
+    ``max_batch`` and rounded down to a multiple of 8."""
+    pixels = max(1, width * height)
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        batch = int(0.6 * free) // (pixels * _BYTES_PER_PIXEL)
+    else:
+        batch = _CPU_PIXEL_BUDGET // pixels
+    batch = max(1, min(max_batch, batch))
+    if batch >= 8:
+        batch -= batch % 8
+    return batch
+
+
+class _HostCopies:
+    """Device -> host copies of batch results into reused pinned buffers.
+
+    ``start`` queues the copy on a side stream behind the work already on
+    the current stream and records a CUDA event; ``wait`` blocks on that
+    event only (not on the whole device); ``release`` hands the buffer back
+    once the consumer has unpacked it, and ``start`` blocks while every
+    buffer is still held. On the CPU the result is the host array."""
+
+    def __init__(self, device: torch.device, n_buffers: int):
+        self.device = device
+        self._n_buffers = n_buffers
+        self._free: "queue.Queue[torch.Tensor]" = queue.Queue()
+        self._spec = None
+        self._stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                        else None)
+
+    def start(self, result: torch.Tensor):
+        if self._stream is None:
+            return result, None
+        spec = (tuple(result.shape), result.dtype)
+        if self._spec is None:
+            self._spec = spec
+            for _ in range(self._n_buffers):
+                self._free.put(torch.empty(spec[0], dtype=spec[1],
+                                           pin_memory=True))
+        elif spec != self._spec:
+            raise ValueError(f"batch result changed shape: {spec} after "
+                             f"{self._spec}")
+        buffer = self._free.get()
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._stream):
+            self._stream.wait_event(ready)
+            buffer.copy_(result, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self._stream)
+        # the allocator must not reuse ``result`` before the copy has read it
+        result.record_stream(self._stream)
+        return buffer, done
+
+    @staticmethod
+    def wait(handle) -> np.ndarray:
+        buffer, done = handle
+        if done is not None:
+            done.synchronize()
+        return buffer.numpy()
+
+    def release(self, handle) -> None:
+        buffer, done = handle
+        if done is not None:
+            self._free.put(buffer)
+
+
+class _AsyncDrainer:
+    """Background drain thread for ``Binarizer.stream_source``.
+
+    In the synchronous stream, host unpacking only progresses while the
+    generator is being pulled — any host work the CONSUMER does between
+    batches (CC tracking, PNG encode) stops it, so at scale wall ~=
+    transfers + consumer work. This thread waits for batch k+1's copy event
+    and unpacks it while the consumer processes batch k
+    (``torch.cuda.Event.synchronize`` releases the GIL).
+
+    Yield order, values, and the in-flight bound (``depth`` batches beyond
+    the one being drained) are identical to the synchronous path."""
+
+    _DONE = object()
+
+    def __init__(self, drain_fn, depth: int, stats: dict):
+        import threading
+
+        self._drain_fn = drain_fn
+        self._depth = depth
+        self._stats = stats
+        self._in = queue.Queue()
+        self._out = queue.Queue(maxsize=depth + 2)
+        self._stop = False
+        self._inflight = 0
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="lm-stream-drain")
+        self._thread.start()
+
+    def _run(self):
+        from time import perf_counter as pc
+        while True:
+            entry = self._in.get()
+            if entry is self._DONE or self._stop:
+                self._put(self._DONE)
+                return
+            t0 = pc()
+            try:
+                out = self._drain_fn(entry)
+            except BaseException as exc:  # noqa: BLE001 — relayed to consumer
+                self._put(("err", exc))
+                return
+            self._stats["drain_s"] += pc() - t0
+            if not self._put(("ok", out)):
+                return
+
+    def _put(self, item) -> bool:
+        """Bounded put that gives up if the consumer abandoned the stream
+        (close() sets _stop) — never leaves this thread blocked forever."""
+        while not self._stop:
+            try:
+                self._out.put(item, timeout=0.5)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _take(self):
+        item = self._out.get()
+        if item is self._DONE:
+            raise RuntimeError("stream drain thread exited early")
+        tag, val = item
+        if tag == "err":
+            self._stop = True
+            raise val
+        self._inflight -= 1
+        return val
+
+    def push(self, entry):
+        """Queue one in-flight entry; returns [result] when the in-flight
+        bound forces a drain (same cadence as the synchronous path)."""
+        self._in.put(entry)
+        self._inflight += 1
+        if self._inflight > self._depth:
+            return [self._take()]
+        return []
+
+    def finish(self):
+        """Yield the remaining in-flight results in order."""
+        self._in.put(self._DONE)
+        while True:
+            item = self._out.get()
+            if item is self._DONE:
+                return
+            tag, val = item
+            if tag == "err":
+                raise val
+            yield val
+
+    def close(self):
+        """Abandonment path (consumer broke out of the generator): unblock
+        and discard; the daemon thread exits on its next queue interaction."""
+        self._stop = True
+        self._in.put(self._DONE)
+        try:
+            while True:
+                self._out.get_nowait()
+        except queue.Empty:
+            pass
+
+
+class Binarizer:
+    """Batched binarizer for a stream of RGB frames, on ``cuda`` unless
+    ``device='cpu'``."""
+
+    def __init__(self, model: FCNLectureNet,
+                 batch_size: Optional[int] = None, force_binary: bool = True,
+                 threshold: int = 128,
+                 pipeline_depth: Optional[int] = None, mesh=None,
+                 fold_bn: bool = True,
+                 upload_format: str = "auto", downscale: str = "host",
+                 downscale_filter: str = "lanczos",
+                 max_model_pixels: int = 2_500_000,
+                 async_drain: Optional[bool] = None,
+                 device: Optional[Union[str, torch.device]] = None,
+                 dtype: Optional[torch.dtype] = None):
+        """``model`` carries the weights (f32 preferred: ``fold_bn`` folds
+        in f32 before the cast to ``dtype``; None keeps the model's dtype).
+
+        ``fold_bn`` (default): fold BatchNorm affines into the conv weights
+        for inference (models.fcn_lecturenet.fold_model).
+
+        ``upload_format``: 'rgb' ships raw uint8 RGB to the device;
+        'yuv420' converts to I420 planes on host and reconstructs RGB on
+        device (half the upload bytes; differs from the RGB path only by
+        BT.601 chroma rounding). 'auto' is 'rgb': a card on PCIe is not
+        bound by the upload. Config: UPLOAD_FORMAT.
+
+        ``downscale``: where the >2.5MP halving (resolve_model_size) runs.
+        'host' (default) halves before upload with the reference-parity PIL
+        LANCZOS filter; 'device' uploads full-res frames and box-halves on
+        the card (device_halve; packed path only). Config:
+        DOWNSCALE_PLACEMENT.
+
+        ``downscale_filter``: host filter — 'lanczos' (reference parity,
+        FCN_lecturenet.py:436) or 'area' (cv2 INTER_AREA). Config:
+        DOWNSCALE_FILTER.
+
+        ``max_model_pixels``: the halving cap (reference: 2.5 MP,
+        FCN_lecturenet.py:434). Config: BINARIZATION_MAX_PIXELS.
+
+        ``async_drain`` (default on): unpack stream results on a background
+        thread so they overlap the consumer's host work between batches
+        (see _AsyncDrainer). Yield order and values are identical. Config:
+        STREAM_ASYNC_DRAIN.
+
+        ``mesh``: frame sharding over several cards is not ported yet and
+        raises."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh sharding over several cards is not ported yet "
+                "(ROADMAP queue 1, item 10)")
+        self.device = resolve_device(device)
+        if fold_bn and not model.fold_bn:
+            model = fold_model(model)
+        model = model.to(device=self.device, dtype=dtype or model.dtype,
+                         memory_format=torch.channels_last).eval()
+        self.model = model
+        self.mesh = None
+        self.batch_size = batch_size
+        self.force_binary = force_binary
+        self.threshold = threshold
+        if pipeline_depth is None:
+            pipeline_depth = 2
+        self.pipeline_depth = max(1, pipeline_depth)
+        self._binarize_fn = make_binarizer(model, force_binary=force_binary,
+                                           threshold=threshold)
+        if not force_binary:
+            upload_format = "rgb"  # full-output path stays RGB
+        elif upload_format == "auto":
+            upload_format = "rgb"
+        if upload_format not in ("rgb", "yuv420"):
+            raise ValueError(f"unknown upload format: {upload_format!r}")
+        self.upload_format = upload_format
+        if downscale not in ("host", "device"):
+            raise ValueError(f"unknown downscale placement: {downscale!r}")
+        if downscale_filter not in ("lanczos", "area"):
+            raise ValueError(f"unknown downscale filter: {downscale_filter!r}")
+        if downscale == "device" and not force_binary:
+            downscale = "host"  # full-output path keeps host-side parity
+        self.downscale = downscale
+        self.downscale_filter = downscale_filter
+        self.max_model_pixels = max_model_pixels
+        self.async_drain = True if async_drain is None else bool(async_drain)
+        if force_binary:
+            self._packed_fn = make_packed_binarizer(
+                model, threshold=threshold, input_format=upload_format)
+            self._packed_fn_key = (upload_format, 0)
+        else:
+            self._packed_fn = None
+            self._packed_fn_key = None
+
+    @classmethod
+    def from_config(cls, config: Config, allow_random: bool = False,
+                    dtype: torch.dtype = torch.bfloat16,
+                    device: Optional[Union[str, torch.device]] = None,
+                    seed: int = 0, **kwargs) -> "Binarizer":
+        """Load the model named by BINARIZATION_FCN_LECTURENET_DIR/FILENAME
+        (a torch ``.dat``/``.pth`` state dict, or a JAX-package ``.msgpack``).
+        With ``allow_random`` and no checkpoint, the weights are a random
+        init from ``torch.Generator().manual_seed(seed)``."""
+        import os
+
+        device = resolve_device(device)
+        net_config = FCNConfig.from_config(config)
+        model = FCNLectureNet(net_config)
+        kwargs.setdefault("upload_format",
+                          config.get_str("UPLOAD_FORMAT", "auto"))
+        kwargs.setdefault("downscale",
+                          config.get_str("DOWNSCALE_PLACEMENT", "host"))
+        kwargs.setdefault("downscale_filter",
+                          config.get_str("DOWNSCALE_FILTER", "lanczos"))
+        kwargs.setdefault("max_model_pixels",
+                          config.get_int("BINARIZATION_MAX_PIXELS",
+                                         2_500_000))
+        kwargs.setdefault("async_drain",
+                          config.get_bool("STREAM_ASYNC_DRAIN", True))
+
+        model_dir = config.get_str("BINARIZATION_FCN_LECTURENET_DIR", "models")
+        model_file = config.get_str("BINARIZATION_FCN_LECTURENET_FILENAME",
+                                    "LectureNet_model_BIN.dat")
+        # the reference resolves the model dir under OUTPUT_PATH
+        # (pre_ST3D_v3.0_01_binarize.py:24-26); an absolute model dir wins
+        # either way because os.path.join discards earlier components then
+        output_path = config.get_str("OUTPUT_PATH", "")
+        candidates = [os.path.join(output_path, model_dir, model_file),
+                      os.path.join(model_dir, model_file)]
+        path = next((p for p in candidates if os.path.exists(p)),
+                    candidates[0])
+
+        if os.path.exists(path):
+            model.load_state_dict(load_checkpoint(path), strict=True)
+        elif allow_random:
+            init_weights(model, torch.Generator().manual_seed(seed))
+        else:
+            raise FileNotFoundError(f"model checkpoint not found: {path}")
+
+        return cls(model, device=device, dtype=dtype, **kwargs)
+
+    # ------------------------------------------------------------ inference
+
+    def _to_device(self, frames: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
+
+    def binarize_frames(self, frames: np.ndarray) -> np.ndarray:
+        """uint8 RGB [B, H, W, 3] -> uint8 binary [B, H, W] in the raw model
+        polarity (a trained model emits ink=0 on a 255 background)."""
+        binary, _, _ = self._binarize_fn(self._to_device(frames))
+        return binary.cpu().numpy()
+
+    def stream_source(self, source: VideoFrameSource, frames_limit: int = 0,
+                      invert: bool = True):
+        """Generator over drained batches: yields (times, indices, frames)
+        with up to ``pipeline_depth`` batches still in flight on the device.
+        Consumers doing host work between batches (CC tracking, PNG encode)
+        overlap it with device compute — express wall-clock approaches
+        max(host, device) instead of their sum."""
+        import time
+
+        first = None
+        model_size = None
+        full_size = None
+        use_packed = self._packed_fn is not None
+        pending = []  # (copy handle, batch) — drained behind for overlap
+        # per-phase wall accounting for the last stream (observability:
+        # where stage-01 time goes — host decode/batch, upload+dispatch,
+        # result copy wait+unpack). Read via self.stream_stats after a run.
+        stats = self.stream_stats = {"source_s": 0.0, "dispatch_s": 0.0,
+                                     "drain_s": 0.0, "downscale_s": 0.0}
+        pc = time.perf_counter
+        # every batch in flight, plus the one being started, holds a buffer
+        copies = _HostCopies(self.device, self.pipeline_depth + 2)
+
+        def drain(entry):
+            handle, batch = entry
+            host = copies.wait(handle)
+            # unpacking (or the copy) leaves the pinned buffer free for reuse
+            host = (unpack_bits_host(host, model_size[0]) if use_packed
+                    else host.copy())
+            copies.release(handle)
+            frames = []
+            for offset in range(batch.valid):
+                img = host[offset]
+                if model_size != full_size:
+                    import cv2
+                    img = cv2.resize(img, full_size,
+                                     interpolation=cv2.INTER_NEAREST)
+                if invert:
+                    img = 255 - img
+                frames.append(img)
+            return batch.times, batch.indices, frames
+
+        drainer = (_AsyncDrainer(drain, self.pipeline_depth, stats)
+                   if self.async_drain else None)
+        if drainer is not None:
+            stats["drain_async"] = 1.0
+        try:
+            batches = self._batched(source, frames_limit)
+            while True:
+                t0 = pc()
+                batch = next(batches, None)
+                stats["source_s"] += pc() - t0
+                if batch is None:
+                    break
+                if first is None:
+                    first = batch
+                    h, w = batch.frames.shape[1:3]
+                    full_size = (w, h)
+                    model_size = resolve_model_size(w, h, self.max_model_pixels)
+                    device_halvings = 0
+                    if (self.downscale == "device" and use_packed and
+                            model_size != full_size):
+                        dw, dh = full_size
+                        while dw * dh > self.max_model_pixels:
+                            dw, dh = int(dw / 2), int(dh / 2)
+                            device_halvings += 1
+                    # I420 needs even width and height % 4 at the UPLOAD size
+                    upload_size = full_size if device_halvings else model_size
+                    if self.upload_format == "yuv420" and \
+                            (upload_size[0] % 2 or upload_size[1] % 4):
+                        self.upload_format = "rgb"
+                    if use_packed and \
+                            self._packed_fn_key != (self.upload_format,
+                                                    device_halvings):
+                        self._packed_fn = make_packed_binarizer(
+                            self.model, threshold=self.threshold,
+                            input_format=self.upload_format,
+                            pre_halvings=device_halvings)
+                        self._packed_fn_key = (self.upload_format,
+                                               device_halvings)
+
+                frames = batch.frames
+                if model_size != full_size and not device_halvings:
+                    t0 = pc()
+                    frames = _downscale_batch(frames, model_size,
+                                              self.downscale_filter)
+                    stats["downscale_s"] += pc() - t0
+
+                if use_packed and self.upload_format == "yuv420":
+                    from ..models.fcn_lecturenet import rgb_to_yuv420_host
+
+                    t0 = pc()
+                    frames = rgb_to_yuv420_host(frames)
+                    stats["source_s"] += pc() - t0
+
+                t0 = pc()
+                if use_packed:
+                    result = self._packed_fn(self._to_device(frames))
+                else:
+                    result, _, _ = self._binarize_fn(self._to_device(frames))
+                handle = copies.start(result)
+                stats["dispatch_s"] += pc() - t0
+                if drainer is not None:
+                    for out in drainer.push((handle, batch)):
+                        yield out
+                else:
+                    pending.append((handle, batch))
+                    if len(pending) > self.pipeline_depth:
+                        t0 = pc()
+                        out = drain(pending.pop(0))
+                        stats["drain_s"] += pc() - t0
+                        yield out
+
+            if drainer is not None:
+                yield from drainer.finish()
+            else:
+                for entry in pending:
+                    t0 = pc()
+                    out = drain(entry)
+                    stats["drain_s"] += pc() - t0
+                    yield out
+        finally:
+            if drainer is not None:
+                drainer.close()
+
+    def process_source(self, source: VideoFrameSource, frames_limit: int = 0,
+                       invert: bool = True):
+        """Run the full stage over a frame source.
+
+        Returns (frame_times, frame_indices, binary_frames) where
+        binary_frames is a list of uint8 [H, W] arrays; with ``invert`` the
+        frames match the reference stage-01 artifact polarity (ink=255,
+        ready for CC labeling).
+        """
+        frame_times: List[float] = []
+        frame_indices: List[int] = []
+        binaries: List[np.ndarray] = []
+        for times, indices, frames in self.stream_source(source, frames_limit,
+                                                         invert):
+            frame_times.extend(times)
+            frame_indices.extend(indices)
+            binaries.extend(frames)
+        return frame_times, frame_indices, binaries
+
+    def _batched(self, source: VideoFrameSource, frames_limit: int):
+        batch_size = self.batch_size
+        if batch_size is None:
+            # peek the first frame to size batches by device memory
+            frame_iter = source.frames(frames_limit)
+            try:
+                first = next(frame_iter)
+            except StopIteration:
+                return
+            h, w = first[2].shape[:2]
+            mw, mh = resolve_model_size(w, h, self.max_model_pixels)
+            batch_size = default_batch_size(mw, mh, self.device)
+            print(f"Stage 01: batch size {batch_size} for {mw}x{mh} frames "
+                  f"on {self.device}")
+            self.batch_size = batch_size
+
+            import itertools
+
+            chained = itertools.chain([first], frame_iter)
+            buffer = []
+            for item in chained:
+                buffer.append(item)
+                if len(buffer) == batch_size:
+                    yield source._pack(buffer, batch_size, True)
+                    buffer = []
+            if buffer:
+                yield source._pack(buffer, batch_size, True)
+            return
+
+        yield from source.batches(batch_size, frames_limit)
+
+
+def _downscale_batch(frames: np.ndarray, model_size: Tuple[int, int],
+                     filter: str = "lanczos") -> np.ndarray:
+    """Iterative halving on host. ``filter='lanczos'`` matches the
+    reference's PIL resize (FCN_lecturenet.py:436 uses PIL.Image.LANCZOS);
+    'area' uses cv2 INTER_AREA (box mean) — pixel values differ slightly
+    near edges."""
+    import cv2
+    from PIL import Image
+
+    out = np.empty((frames.shape[0], model_size[1], model_size[0], 3), np.uint8)
+    for k in range(frames.shape[0]):
+        if filter == "area":
+            img = frames[k]
+            while img.shape[0] * img.shape[1] > model_size[0] * model_size[1]:
+                img = cv2.resize(img, (img.shape[1] // 2, img.shape[0] // 2),
+                                 interpolation=cv2.INTER_AREA)
+            out[k] = img
+            continue
+        img = Image.fromarray(frames[k])
+        # halve until the pixel count reaches the target's — model_size
+        # (from resolve_model_size) is the single source of the halving
+        # rule, so the two can't drift apart
+        while img.size[0] * img.size[1] > model_size[0] * model_size[1]:
+            img = img.resize((img.size[0] // 2, img.size[1] // 2),
+                             Image.LANCZOS)
+        out[k] = np.asarray(img)
+    return out
