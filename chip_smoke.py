@@ -20,9 +20,24 @@ then, in phases:
      split within 3 samples of the era boundary, both kernels launched, and
      a stage-01 batch within a 1% pixel flip rate of the plain f32 path;
      then the same run once more under torch.profiler for the device time
-     by kernel group and the device's busy share.
+     by kernel group and the device's busy share;
+  5. kernel K3 (cc_label) against its plain PyTorch version at its fixed
+     point, exactly, and against scipy.ndimage.label after compact_labels:
+     16 frames of 960x540 binarized by stage 01, a snake, a spiral, an
+     all-foreground frame, a checkerboard, single-pixel lines on the block
+     borders, random frames near percolation, and odd shapes; kernel and
+     plain times beside the bytes bound;
+  6. the staged path at the same widths with CC_ANALYSIS_DEVICE_LABELING = 1:
+     stage01_binarize through the driver (frames from memory), then the
+     cc_analysis, cc_grouping, vid_segmentation and generate_summary CLIs on
+     the config; the device-labeled stage-02 tracker must equal a
+     host-labeled one on the same artifact, the summary must hold at least 2
+     inked keyframes split where express split them, and K1, K2 and K3 must
+     all have launched. Each stage's wall time is printed.
 
-It prints one JSON line of kernel numbers, then as its last line
+The launch counts are set to 0 just before each of the two paths (phases 4
+and 6) and read just after. It prints one JSON line of kernel numbers, then
+as its last line
 ``{"ok": true, "device": {...}}``, and exits 0 only when every phase passed.
 Without CUDA, or without the package beside it, it exits non-zero and prints
 no result.
@@ -54,6 +69,10 @@ MAX_FLIP_RATE = 0.01
 # relative; f32 sums over up to 49*35 terms in another order
 K2_REL = {"bf16": 2.0 ** -8, "f32": 1e-4}
 K2_ABS = 1e-3
+# stage 02's labeling batch on the main path (configs/example.conf:126)
+CC_BATCH = 16
+# rounds enough for the plain labeling to reach its fixed point on any frame
+FIXED_POINT = 1 << 20
 
 
 def log(*args):
@@ -299,8 +318,22 @@ VIDEO_SEGMENTATION_DEL_EVENT_THRESHOLD = 0.0008
 """
 
 
+# the staged relay's artifact names, and stage 02 labeling on the card
+STAGED_CONFIG = """BINARIZATION_OUTPUT = tempo_binary_
+CC_STABILITY_OUTPUT = tempo_stability_
+CC_RECONSTRUCTED_OUTPUT = tempo_bin_reconstructed_
+CC_CONFLICTS_OUTPUT = tempo_cc_conflicts_
+CC_ST3D_OUTPUT = tempo_cc_ST3D_
+VIDEO_SEGMENTATION_OUTPUT = tempo_intervals_
+SUMMARY_KEYFRAMES_OUTPUT = tempo_segments_
+CC_ANALYSIS_DEVICE_LABELING = 1
+CC_ANALYSIS_DEVICE_BATCH = {batch}
+"""
+
+
 def make_workspace():
-    """Config, database and a seeded threshold-head checkpoint (.dat)."""
+    """Config, database and a seeded threshold-head checkpoint (.dat); the
+    staged config adds STAGED_CONFIG."""
     from lecturemath_tpu_torch.core.config import Config
     from lecturemath_tpu_torch.models.convert import save_checkpoint
     from lecturemath_tpu_torch.models.fcn_lecturenet import FCNConfig
@@ -314,10 +347,17 @@ def make_workspace():
     conf = os.path.join(WORKSPACE, "smoke.conf")
     with open(conf, "w") as f:
         f.write(CONFIG.format(ws=WORKSPACE))
+    with open(os.path.join(WORKSPACE, "staged.conf"), "w") as f:
+        f.write(CONFIG.format(ws=WORKSPACE)
+                + STAGED_CONFIG.format(batch=CC_BATCH))
     net_config = FCNConfig.from_config(Config.from_file(conf))
     save_checkpoint(threshold_binarizer_variables(net_config, seed=0),
                     os.path.join(WORKSPACE, "models", "smoke.dat"))
     return conf, net_config
+
+
+# the kernels express launches; it labels on the host, so K3 is not one
+EXPRESS_KERNELS = ("threshold_pack", "conv_same_nhwc")
 
 
 def make_source():
@@ -329,7 +369,8 @@ def make_source():
 
 
 def phase_main_path(conf, counters):
-    """Express on the card; returns (launch counts, summary dict)."""
+    """Express on the card; returns (launch counts of every kernel in
+    ``counters``, summary dict)."""
     import numpy as np
     import torch
 
@@ -378,8 +419,8 @@ def phase_main_path(conf, counters):
     if abs(indices[0] - boundary) > 3:
         raise AssertionError(f"first segment ends at {indices[0]}, era "
                              f"boundary {boundary}")
-    for name, count in launches.items():
-        if count <= 0:
+    for name in EXPRESS_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched")
 
     # a stage-01 batch of both eras against the plain f32 path on the card
@@ -408,15 +449,16 @@ def phase_main_path(conf, counters):
                              f"{MAX_FLIP_RATE}")
 
     device_breakdown(lambda: run_lecture(driver, lecture, binarizer,
-                                         source=make_source(), export=False))
+                                         source=make_source(), export=False),
+                     "express")
     return launches, {"fps": N_FRAMES / wall, "wall_s": wall,
-                      "batch": binarizer.batch_size, "flip_rate": flip_rate}
+                      "batch": binarizer.batch_size, "flip_rate": flip_rate,
+                      "indices": list(indices)}
 
 
-def device_breakdown(run):
-    """Run ``run()`` once more under torch.profiler and print where the
-    card's time went: device ms by kernel group and the device's busy share
-    of the run's wall clock (the union of kernel and copy spans)."""
+def profiled_spans(run):
+    """Run ``run()`` under torch.profiler; returns (wall ms, sorted device
+    spans (start us, end us, category, name) of kernels and copies)."""
     import tempfile
 
     import torch
@@ -433,18 +475,29 @@ def device_breakdown(run):
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    spans = sorted((ev["ts"], ev["ts"] + ev["dur"], ev["cat"], ev["name"])
-                   for ev in events if ev.get("ph") == "X" and ev.get("cat")
-                   in ("kernel", "gpu_memcpy", "gpu_memset"))
+    return wall_ms, sorted(
+        (ev["ts"], ev["ts"] + ev["dur"], ev["cat"], ev["name"])
+        for ev in events if ev.get("ph") == "X" and ev.get("cat")
+        in ("kernel", "gpu_memcpy", "gpu_memset"))
+
+
+def device_breakdown(run, what):
+    """Run ``run()`` once more under torch.profiler and print where the
+    card's time went: device ms by kernel group and the device's busy share
+    of the run's wall clock (the union of kernel and copy spans)."""
+    wall_ms, spans = profiled_spans(run)
     if not spans:
-        log("profiled express: the profiler saw no device events; device "
-            "breakdown not measured")
+        log(f"profiled {what}: the profiler saw no device events; device "
+            f"breakdown not measured")
         return
     groups, names = {}, {}
     busy_us, end_us = 0.0, float("-inf")
     for start, end, cat, name in spans:
         group = ("K2 conv_same_kernel" if "conv_same_kernel" in name else
                  "K1 threshold_pack_kernel" if "threshold_pack_kernel" in name
+                 else "K3 cc_*_kernel" if any(
+                     f"cc_{step}_kernel" in name
+                     for step in ("local", "merge", "flatten"))
                  else "copies and memsets" if cat != "kernel"
                  else "trunk and glue (cuDNN, elementwise)")
         groups[group] = groups.get(group, 0.0) + (end - start) / 1e3
@@ -452,11 +505,284 @@ def device_breakdown(run):
         busy_us += max(0.0, end - max(start, end_us))
         end_us = max(end_us, end)
     top = sorted(names.items(), key=lambda kv: -kv[1])[:6]
-    log(f"profiled express ({wall_ms:.1f} ms wall under the profiler): "
+    log(f"profiled {what} ({wall_ms:.1f} ms wall under the profiler): "
         f"device busy {busy_us / 1e3:.1f} ms = "
         f"{busy_us / 1e3 / wall_ms:.3f} of the wall; device ms by group "
         f"{json.dumps({k: round(v, 3) for k, v in groups.items()})}; top "
         f"kernels {json.dumps({k: round(v, 3) for k, v in top})}")
+
+def snake(h, w, pitch):
+    """One component winding across the frame: rows every ``pitch`` pixels
+    joined at alternate ends."""
+    import numpy as np
+
+    img = np.zeros((h, w), np.uint8)
+    for k, row in enumerate(range(0, h, pitch)):
+        img[row, :] = 1
+        img[row:row + pitch + 1, -1 if k % 2 == 0 else 0] = 1
+    return img
+
+
+def spiral(h, w):
+    """One component: a square spiral of 1-pixel walls and 1-pixel gaps."""
+    import numpy as np
+
+    img = np.zeros((h, w), np.uint8)
+    top, left, bottom, right = 0, 0, h - 1, w - 1
+    while top <= bottom and left <= right:
+        img[top, left:right + 1] = 1
+        img[top:bottom + 1, right] = 1
+        if top + 2 <= bottom:
+            img[bottom, left:right + 1] = 1
+            img[top + 2:bottom + 1, left] = 1
+            img[top + 2, min(left + 1, right)] = 1
+        top, left, bottom, right = top + 2, left + 2, bottom - 2, right - 2
+    return img
+
+
+def border_lines(h, w):
+    """Single-pixel lines on both sides of the kernel's 32-pixel block
+    borders, and short crossings of them."""
+    import numpy as np
+
+    img = np.zeros((h, w), np.uint8)
+    img[31::32, 5:-5] = 1
+    img[5:-5, 32::32] = 1
+    img[::7, 63:65] = 1
+    img[95:97, ::5] = 1
+    return img
+
+
+def k3_inputs(binaries):
+    """(name, uint8 [B, H, W]) batches for phase 5."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    h, w = HEIGHT, WIDTH
+    yy, xx = np.mgrid[:h, :w]
+    patterns = np.stack([
+        snake(h, w, 3), spiral(h, w), np.ones((h, w), np.uint8),
+        ((yy + xx) % 2).astype(np.uint8), border_lines(h, w),
+        np.zeros((h, w), np.uint8)])
+    random = (rng.random((CC_BATCH, h, w))
+              < np.linspace(0.5, 0.6, CC_BATCH)[:, None, None]).astype(
+                  np.uint8)
+    odd = [(rng.random((3, 301, 133)) < 0.55).astype(np.uint8),
+           (rng.random((1, 37, 45)) < 0.59).astype(np.uint8)]
+    odd[0][1] = spiral(301, 133)
+    return [(f"stage-01 frames {list(binaries.shape)}", binaries),
+            ("snake, spiral, full, checkerboard, border lines, empty",
+             patterns),
+            (f"random at density 0.5-0.6 {list(random.shape)}", random),
+            ("odd [3, 301, 133]", odd[0]), ("odd [1, 37, 45]", odd[1])]
+
+
+def phase_k3(conf):
+    """K3 against label_components_plain at its fixed point and against
+    scipy.ndimage.label; returns its kernel record."""
+    import numpy as np
+    import torch
+    from scipy import ndimage
+
+    from lecturemath_tpu_torch.core.config import Config
+    from lecturemath_tpu_torch.ops.cc_label import (compact_labels,
+                                                    label_components_batch,
+                                                    label_components_plain)
+    from lecturemath_tpu_torch.pipeline.binarize import Binarizer
+    from lecturemath_tpu_torch.pipeline.video import ArraySource
+
+    # 16 frames over both eras through stage 01 (ink = 255)
+    source = make_source()
+    picks = np.linspace(0, N_FRAMES - 1, CC_BATCH).astype(int)
+    binarizer = Binarizer.from_config(Config.from_file(conf))
+    _, _, frames = binarizer.process_source(
+        ArraySource(np.stack([source.rgb_frame(int(t)) for t in picks])))
+    binaries = np.stack(frames)
+    del binarizer
+    torch.cuda.empty_cache()
+
+    max_err = 0
+    for name, batch in k3_inputs(binaries):
+        dev = torch.from_numpy(np.ascontiguousarray(batch)).cuda()
+        got = label_components_batch(dev)
+        t0 = time.perf_counter()
+        ref = label_components_plain(dev, FIXED_POINT)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        differ = int((got != ref).sum())
+        err = int((got.long() - ref.long()).abs().max())
+        max_err = max(max_err, err)
+        labels = got.cpu().numpy()
+        scipy_differ = 0
+        components = 0
+        for frame, frame_labels in zip(batch, labels):
+            compacted, n = compact_labels(frame_labels)
+            expected, n_ref = ndimage.label(frame)
+            components += n_ref
+            scipy_differ += int((compacted != expected).sum()) + abs(n - n_ref)
+        log(f"K3 {name}: {differ} labels differ from the plain version "
+            f"({plain_s:.2f} s to its fixed point), {scipy_differ} from "
+            f"scipy after compact_labels; {components} components")
+        if differ or scipy_differ:
+            raise AssertionError(f"K3 disagrees on {name}")
+
+    main = torch.from_numpy(binaries).cuda()
+    ms = cuda_ms(lambda: label_components_batch(main), 50)
+    plain_ms = cuda_ms(lambda: label_components_plain(main, FIXED_POINT), 3)
+    n_bytes = main.numel() * (1 + 4)
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    log(f"K3 [{CC_BATCH},{HEIGHT},{WIDTH}] u8 -> int32: kernel "
+        f"{ms * 1e3:.1f} us (three launches), plain {plain_ms:.3f} ms, bound "
+        f"{bytes_ms * 1e3:.1f} us (bytes {n_bytes}); no PyTorch call labels "
+        f"components")
+    device_breakdown(lambda: [label_components_batch(main)
+                              for _ in range(20)],
+                     f"K3 x20 at [{CC_BATCH},{HEIGHT},{WIDTH}]")
+    return {"name": "cc_label", "route": "cuda",
+            "source": "lecturemath_tpu_torch/csrc/cc_label.cu",
+            "replaces": "lecturemath_tpu/ops/cc_label_pallas.py:33",
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bytes_ms, "bound_by": "bytes", "library_ms": None}
+
+
+def same_tracker(ours, theirs):
+    """Unique CCs, their frames, boxes, sizes and images."""
+    import numpy as np
+
+    if len(ours.unique_ccs) != len(theirs.unique_ccs):
+        return False
+    if ours.unique_cc_frames != theirs.unique_cc_frames:
+        return False
+    for a, b in zip(ours.unique_ccs, theirs.unique_ccs):
+        if (a.min_x, a.max_x, a.min_y, a.max_y, a.size) != \
+                (b.min_x, b.max_x, b.min_y, b.max_y, b.size):
+            return False
+        if not np.array_equal(a.img, b.img):
+            return False
+    return True
+
+
+def phase_staged(counters, express_indices):
+    """The staged path on the card; returns its launch counts."""
+    import torch
+
+    from lecturemath_tpu_torch.cli import (cc_analysis, cc_grouping,
+                                           generate_summary, vid_segmentation)
+    from lecturemath_tpu_torch.core.timing import StageTimer
+    from lecturemath_tpu_torch.pipeline import stages
+    from lecturemath_tpu_torch.pipeline.binarize import Binarizer
+    from lecturemath_tpu_torch.pipeline.driver import PipelineDriver
+
+    class MemoryDriver(PipelineDriver):
+        """The card's machine has no OpenCV to decode a video: stage 01
+        reads the synthetic lecture from memory."""
+
+        def frame_source(self, lecture):
+            return make_source()
+
+    conf = os.path.join(WORKSPACE, "staged.conf")
+    timer = StageTimer()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    with timer.measure("01 binarize"):
+        driver = MemoryDriver.from_config_path(conf, [], None,
+                                               "BINARIZATION_OUTPUT")
+        binarizer = Binarizer.from_config(driver.config)
+        driver.run(lambda d, lecture, inputs:
+                   stages.stage01_binarize(d, lecture, inputs, binarizer))
+        del binarizer
+    for name, cli in (("02 cc_analysis", cc_analysis),
+                      ("03 cc_grouping", cc_grouping),
+                      ("04 vid_segmentation", vid_segmentation),
+                      ("05 generate_summary", generate_summary)):
+        with timer.measure(name):
+            cli.main([cli.__name__, conf])
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"staged path: {json.dumps({k: round(v, 3) for k, v in timer.totals.items()})} "
+        f"s by stage (StageTimer), {sum(timer.totals.values()):.3f} s in all; "
+        f"launches {launches}")
+
+    # check 1: the K3-labeled tracker against host labeling of the artifact
+    store = PipelineDriver.from_config_path(conf, [], None, None).store
+    lecture_id = driver.database.lectures[0].id
+    _, _, device_tracker = store.load("tempo_stability_", lecture_id)
+    host = PipelineDriver.from_config_path(conf, [], "BINARIZATION_OUTPUT",
+                                           None)
+    host.config.set("CC_ANALYSIS_DEVICE_LABELING", 0)
+    t0 = time.perf_counter()
+    _, _, host_tracker = stages.stage02_cc_analysis(
+        host, host.database.lectures[0], host.load_inputs(
+            host.database.lectures[0]))
+    log(f"stage 02 host-labeled on the same artifact in "
+        f"{time.perf_counter() - t0:.3f} s: {len(host_tracker.unique_ccs)} "
+        f"unique CCs, device-labeled {len(device_tracker.unique_ccs)}")
+    if not same_tracker(device_tracker, host_tracker):
+        raise AssertionError("the K3-labeled stage-02 tracker differs from "
+                             "the host-labeled one")
+
+    # check 2: the summary
+    (indices, _, keyframes), = store.load("tempo_segments_", lecture_id)
+    intervals = store.load("tempo_intervals_", lecture_id)
+    boundary = make_source().erase_times[0]
+    log(f"staged summary: {len(keyframes)} keyframes at {list(indices)}, "
+        f"intervals {intervals} (era boundary {boundary}; express "
+        f"{express_indices})")
+    if len(keyframes) < 2:
+        raise AssertionError(f"expected >= 2 keyframes, got {len(keyframes)}")
+    for keyframe in keyframes:
+        if keyframe.shape != (HEIGHT, WIDTH, 3) or not (keyframe < 128).any():
+            raise AssertionError("a keyframe has no ink or a wrong shape")
+    if abs(intervals[0][1] - boundary) > 3:
+        raise AssertionError(f"first split at {intervals[0][1]}, era "
+                             f"boundary {boundary}")
+    if list(indices) != list(express_indices):
+        raise AssertionError(f"staged summary indices {list(indices)} differ "
+                             f"from express {express_indices}")
+
+    # check 3: every kernel of the path ran
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"kernel {name} was not launched")
+
+    stage02_profile(conf)
+    device_breakdown(lambda: cc_analysis.main([cc_analysis.__name__, conf]),
+                     "stage 02 (the cc_analysis CLI, K3)")
+    return launches
+
+
+# stage 02's pieces: (file, function) as cProfile names them
+STAGE02_PIECES = {
+    ("pipeline/stages.py", "stage02_cc_analysis"): "the whole stage",
+    ("pipeline/video.py", "decompress_png"): "png decode",
+    ("ops/cc_label.py", "label_components_batch"): "K3 wrapper (launch)",
+    ("~", "<method 'cpu' of"): "Tensor.cpu (labels to the host, waits on K3)",
+    ("ops/cc_label.py", "compact_labels"): "compact_labels",
+    ("data/cc.py", "extract_ccs"): "extract_ccs from labels",
+    ("pipeline/cc_tracking.py", "add_frame_ccs"): "tracking",
+}
+
+
+def stage02_profile(conf):
+    """Run the stage-02 CLI once more under cProfile and print the
+    cumulative host seconds of its pieces (cProfile adds a cost to every
+    Python call, so the whole stage is printed beside them)."""
+    import cProfile
+    import pstats
+
+    from lecturemath_tpu_torch.cli import cc_analysis
+
+    profiler = cProfile.Profile()
+    profiler.runcall(cc_analysis.main, [cc_analysis.__name__, conf])
+    seconds = {}
+    for (path, _, func), (_, _, _, cumulative, _) in \
+            pstats.Stats(profiler).stats.items():
+        for (suffix, name), piece in STAGE02_PIECES.items():
+            if func.startswith(name) and path.endswith(suffix):
+                seconds[piece] = seconds.get(piece, 0.0) + cumulative
+    log(f"stage 02 under cProfile (host clock, cumulative s): "
+        f"{json.dumps({k: round(v, 4) for k, v in seconds.items()})}")
 
 
 def main():
@@ -474,6 +800,7 @@ def main():
     sys.path.insert(0, REPO)
     from lecturemath_tpu_torch.models.fcn_lecturenet import FCNConfig
     from lecturemath_tpu_torch.ops import cuda_build
+    from lecturemath_tpu_torch.ops.cc_label import label_components_batch
     from lecturemath_tpu_torch.ops.conv7 import conv_same_nhwc
     from lecturemath_tpu_torch.ops.postprocess import threshold_pack
     from lecturemath_tpu_torch.pipeline.binarize import default_batch_size
@@ -499,7 +826,8 @@ def main():
     failures = []
     records = {}
     counters = {"threshold_pack": threshold_pack,
-                "conv_same_nhwc": conv_same_nhwc}
+                "conv_same_nhwc": conv_same_nhwc,
+                "cc_label": label_components_batch}
     batch = default_batch_size(WIDTH, HEIGHT, torch.device("cuda"))
     log(f"main-path batch size: {batch}")
     for name, phase in (("K1", lambda: phase_k1(batch)),
@@ -512,20 +840,42 @@ def main():
         torch.cuda.empty_cache()
 
     launches = {}
+    staged_launches = {}
     summary = {}
     try:
         conf, _ = make_workspace()
-        launches, summary = phase_main_path(conf, counters)
+        try:
+            launches, summary = phase_main_path(conf, counters)
+        except Exception:  # noqa: BLE001 — report every phase, then fail
+            traceback.print_exc()
+            failures.append("main path")
+        torch.cuda.empty_cache()
+        try:
+            records["K3"] = phase_k3(conf)
+        except Exception:  # noqa: BLE001 — report every phase, then fail
+            traceback.print_exc()
+            failures.append("K3")
+        torch.cuda.empty_cache()
+        try:
+            staged_launches = phase_staged(counters, summary.get("indices"))
+        except Exception:  # noqa: BLE001 — report every phase, then fail
+            traceback.print_exc()
+            failures.append("staged path")
     except Exception:  # noqa: BLE001 — report every phase, then fail
         traceback.print_exc()
-        failures.append("main path")
+        failures.append("workspace")
     finally:
         shutil.rmtree(WORKSPACE, ignore_errors=True)
 
-    if "K1" in records:
-        records["K1"]["launches"] = launches.get("threshold_pack", 0)
-    if "K2" in records:
-        records["K2"]["launches"] = launches.get("conv_same_nhwc", 0)
+    # launches: the staged path's counts (it runs every kernel), with each
+    # path's own counts beside them
+    for key, name in (("K1", "threshold_pack"), ("K2", "conv_same_nhwc"),
+                      ("K3", "cc_label")):
+        if key in records:
+            records[key]["launches"] = staged_launches.get(name, 0)
+            records[key]["launches_by_path"] = {
+                "express": launches.get(name, 0),
+                "staged": staged_launches.get(name, 0)}
     log(f"express {summary.get('fps', 0):.2f} fps on {card}")
     log(card)
     log(json.dumps({"kernels": list(records.values())}))

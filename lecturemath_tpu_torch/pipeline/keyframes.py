@@ -195,13 +195,15 @@ def export_summary(output_prefix: str, database_name: str, lecture_title: str,
                    summary_indices, summary_times, keyframes,
                    keyframe_times=None) -> str:
     """Write keyframes/<idx>.png + segments.xml (+ gui_export.xml).
-    Returns the segments.xml path."""
-    import cv2
+    Returns the segments.xml path. The keyframe PNGs have the bytes
+    ``cv2.imwrite`` would write (utils/png.py)."""
+    from ..utils.png import encode_png
 
     keyframes_dir = os.path.join(output_prefix, "keyframes")
     os.makedirs(keyframes_dir, exist_ok=True)
     for index, image in zip(summary_indices, keyframes):
-        cv2.imwrite(os.path.join(keyframes_dir, f"{index}.png"), image)
+        with open(os.path.join(keyframes_dir, f"{index}.png"), "wb") as f:
+            f.write(encode_png(image))
 
     xml_path = os.path.join(output_prefix, "segments.xml")
     with open(xml_path, "w") as f:

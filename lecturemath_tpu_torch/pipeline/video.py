@@ -391,23 +391,21 @@ def distribute_values(count: int, start: int, end: int) -> List[int]:
 def compress_png(frames: Sequence[np.ndarray]) -> List[np.ndarray]:
     """In-memory PNG encoding for reference-compatible stage artifacts
     (reference stores stage-01 output PNG-compressed,
-    FCN_lecturenet_binarizer.py:56)."""
-    import cv2
+    FCN_lecturenet_binarizer.py:56). Each buffer is what ``cv2.imencode``
+    returns, a uint8 array of shape (n, 1), with the same bytes
+    (utils/png.py), so no OpenCV is needed."""
+    from ..utils.png import encode_png
 
-    out = []
-    for frame in frames:
-        ok, data = cv2.imencode(".png", frame)
-        if not ok:
-            raise RuntimeError("PNG encode failed")
-        out.append(data)
-    return out
+    return [np.frombuffer(encode_png(frame), np.uint8).reshape(-1, 1)
+            for frame in frames]
 
 
 def decompress_png(buffers: Sequence[np.ndarray]) -> List[np.ndarray]:
-    import cv2
+    """Decode 8-bit grayscale PNG buffers (utils/png.py; raises
+    PNGFormatError on any other PNG)."""
+    from ..utils.png import decode_png_gray
 
-    return [cv2.imdecode(np.asarray(buf), cv2.IMREAD_GRAYSCALE)
-            for buf in buffers]
+    return [decode_png_gray(buf) for buf in buffers]
 
 
 def grayscale_variance_map(image: np.ndarray, ksize: int) -> np.ndarray:

@@ -12,6 +12,11 @@ import numpy as np
 import pytest
 import torch
 
+from lecturemath_tpu_torch.ops.cc_label import (compact_labels,
+                                                label_components,
+                                                label_components_batch,
+                                                label_components_plain)
+from lecturemath_tpu_torch.ops.cc_label_pallas import label_components_tiled
 from lecturemath_tpu_torch.ops.conv7 import (conv7_same, conv_same_nhwc,
                                              conv_same_plain)
 from lecturemath_tpu_torch.ops.postprocess import (threshold_pack,
@@ -128,3 +133,99 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="odd k"):
         conv_same_nhwc(x, torch.zeros(2, 4, 4, 4, device=cuda,
                                       dtype=torch.bfloat16))
+
+
+# --- kernel K3: CC labeling, exact against the plain version at its fixed
+# point (labels are integers; the kernel's result does not depend on the
+# order of its atomics)
+
+FIXED_POINT = 1 << 20   # rounds: the plain version stops at its fixed point
+
+
+def _snake(h, w, pitch):
+    img = np.zeros((h, w), np.uint8)
+    for k, row in enumerate(range(0, h, pitch)):
+        img[row, :] = 1
+        img[row:row + pitch + 1, -1 if k % 2 == 0 else 0] = 1
+    return img
+
+
+def _spiral(h, w):
+    img = np.zeros((h, w), np.uint8)
+    top, left, bottom, right = 0, 0, h - 1, w - 1
+    while top <= bottom and left <= right:
+        img[top, left:right + 1] = 1
+        img[top:bottom + 1, right] = 1
+        if top + 2 <= bottom:
+            img[bottom, left:right + 1] = 1
+            img[top + 2:bottom + 1, left] = 1
+            img[top + 2, min(left + 1, right)] = 1
+        top, left, bottom, right = top + 2, left + 2, bottom - 2, right - 2
+    return img
+
+
+def _border_lines(h, w):
+    """Single-pixel lines on both sides of the 32-pixel block borders, and
+    short crossings of them."""
+    img = np.zeros((h, w), np.uint8)
+    img[31::32, 5:-5] = 1
+    img[5:-5, 32::32] = 1
+    img[::7, 63:65] = 1
+    img[95:97, ::5] = 1
+    return img
+
+
+def _patterns(h, w, seed):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w]
+    return {"snake": _snake(h, w, 3), "spiral": _spiral(h, w),
+            "full": np.ones((h, w), np.uint8),
+            "checkerboard": ((yy + xx) % 2).astype(np.uint8),
+            "border_lines": _border_lines(h, w),
+            "percolation_0.55": (rng.random((h, w)) < 0.55).astype(np.uint8),
+            "percolation_0.6": (rng.random((h, w)) < 0.6).astype(np.uint8),
+            "empty": np.zeros((h, w), np.uint8)}
+
+
+@pytest.mark.parametrize("shape", [(2, 200, 330), (3, 301, 133), (1, 37, 45),
+                                   (2, 64, 64)])
+def test_cc_label_matches_plain_and_scipy(cuda, shape):
+    from scipy import ndimage
+
+    b, h, w = shape
+    for name, img in _patterns(h, w, seed=h * w).items():
+        batch = np.stack([img] * b)
+        batch[-1] = np.random.default_rng(b).random((h, w)) < 0.3
+        dev = torch.from_numpy(batch).to(cuda)
+        before = label_components_batch.launches
+        got = label_components_batch(dev)
+        assert label_components_batch.launches == before + 1
+        assert got.dtype == torch.int32 and tuple(got.shape) == shape
+        ref = label_components_plain(dev, FIXED_POINT)
+        assert torch.equal(got, ref), name
+        for frame, labels in zip(batch, got.cpu().numpy()):
+            compacted, n = compact_labels(labels)
+            expected, n_ref = ndimage.label(frame)
+            assert n == n_ref, name
+            np.testing.assert_array_equal(compacted, expected)
+    # the single-frame and tiled wrappers go through the same kernel
+    frame = torch.from_numpy(_spiral(h, w)).to(cuda)
+    single = label_components(frame)
+    assert torch.equal(single, label_components_tiled(frame, tile=(8, 8)))
+    assert torch.equal(single, label_components_plain(frame[None],
+                                                      FIXED_POINT)[0])
+    # a bool batch is the same uint8 batch
+    assert torch.equal(label_components_batch(dev != 0),
+                       label_components_batch(dev))
+
+
+def test_cc_label_refuses_what_the_kernel_does_not_take(cuda):
+    binary = torch.zeros(2, 8, 16, dtype=torch.uint8, device=cuda)
+    with pytest.raises(TypeError, match="uint8 or bool"):
+        label_components_batch(binary.int())
+    with pytest.raises(ValueError, match=r"\[B, H, W\]"):
+        label_components_batch(binary[0])
+    with pytest.raises(ValueError, match="contiguous"):
+        label_components_batch(binary.transpose(1, 2))
+    with pytest.raises(ValueError, match=r"\[H, W\]"):
+        label_components(binary)

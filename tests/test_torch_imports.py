@@ -104,3 +104,63 @@ def test_every_port_module_imports_with_jax_blocked():
                             env=env)
     assert result.returncode == 0, result.stderr[-3000:]
     assert f"imported {len(modules)}" in result.stdout
+
+
+SLICE_MODULES = [
+    "lecturemath_tpu_torch.utils.png",
+    "lecturemath_tpu_torch.ops.cc_label",
+    "lecturemath_tpu_torch.ops.cc_label_pallas",
+    "lecturemath_tpu_torch.pipeline.stages",
+    *[f"lecturemath_tpu_torch.cli.{name}" for name in (
+        "binarize", "cc_analysis", "cc_grouping", "vid_segmentation",
+        "generate_summary", "quickstart")],
+]
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_staged_slice_modules_are_checked(module):
+    """The staged CLIs, stages.py, the CC labeling ops and the PNG codec are
+    among the files the checks above walk."""
+    assert module in [_module_name(p) for p in _port_files()]
+
+
+_NO_OPENCV = r"""
+import os, sys
+BANNED = ("cv2", "PIL")
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".") for b in BANNED):
+            raise ImportError("blocked import of " + name)
+        return None
+
+for name in list(sys.modules):
+    if any(name == b or name.startswith(b + ".") for b in BANNED):
+        del sys.modules[name]
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, %r)
+import numpy as np
+from lecturemath_tpu_torch.pipeline.keyframes import export_summary
+from lecturemath_tpu_torch.pipeline.video import compress_png, decompress_png
+frames = [np.where(np.random.default_rng(k).random((20, 30)) < 0.2, 255,
+                   0).astype(np.uint8) for k in range(3)]
+buffers = compress_png(frames)
+assert all(b.dtype == np.uint8 and b.shape[1] == 1 for b in buffers)
+for frame, back in zip(frames, decompress_png(buffers)):
+    assert (frame == back).all()
+keyframe = np.repeat(frames[0][..., None], 3, axis=2)
+export_summary(%r, "DB", "lecture", ["v"], [(0, 2)], [(0.0, 2.0)], [2],
+               [2.0], [keyframe])
+print("relay ok")
+"""
+
+
+def test_png_relay_and_export_need_no_opencv(tmp_path):
+    """The stage-artifact PNG relay and the keyframe export run with cv2
+    and PIL unimportable, as on a machine that has neither."""
+    script = _NO_OPENCV % (REPO, str(tmp_path / "summary"))
+    result = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                            capture_output=True, text=True, timeout=120)
+    assert result.returncode == 0, result.stderr[-3000:]
+    assert "relay ok" in result.stdout
+    assert (tmp_path / "summary" / "keyframes" / "2.png").exists()
