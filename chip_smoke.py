@@ -6,21 +6,26 @@ It builds the CUDA kernels from ``lecturemath_tpu_torch/csrc`` with nvcc and
 then, in phases:
 
   1. environment: the card's name and power limit, torch and CUDA versions,
-     the kernels' build time;
+     the kernels' build time and ptxas' registers and spills per kernel;
   2. kernel K1 (threshold_pack) against its plain PyTorch version at the
      main path's shape [B, 544, 960] and at odd shapes, with logits placed on
      the threshold; kernel and plain times beside the bytes bound;
-  3. kernel K2 (conv_same_nhwc) against its plain version (F.conv2d in f32,
-     TF32 off) at the four head-conv shapes of the main path, bf16 inputs;
-     kernel, plain and cuDNN bf16 (library yardstick) times beside the
-     operations bound;
+  3. kernel K2 (conv_same_nhwc, an implicit GEMM on the tensor cores)
+     against its plain version (torch.cat + F.conv2d in f32, TF32 off) at
+     the four head-conv shapes of the main path, in the two-input form the
+     model calls (diff image beside a feature map), bf16 inputs; kernel,
+     plain, cuDNN bf16 on the concatenated tensor (library yardstick) and
+     cat + cuDNN times, per-head TFLOP/s and share of the bound;
   4. the express pipeline (Binarizer.from_config + run_lecture) on a
      240-frame synthetic 960x540 lecture at the production widths 48..768 in
      bf16 with seeded threshold-head weights: at least 2 inked keyframes
      split within 3 samples of the era boundary, both kernels launched, and
      a stage-01 batch within a 1% pixel flip rate of the plain f32 path;
-     then the same run once more under torch.profiler for the device time
-     by kernel group and the device's busy share;
+     then 8 frames through the bf16 model with seeded random head weights
+     on the kernel path against the same weights on the plain path (logits
+     within a stated tolerance; no head concat on the kernel path); then
+     the express run once more under torch.profiler for the device time by
+     kernel group and the device's busy share;
   5. kernel K3 (cc_label) against its plain PyTorch version at its fixed
      point, exactly, and against scipy.ndimage.label after compact_labels:
      16 frames of 960x540 binarized by stage 01, a snake, a spiral, an
@@ -69,6 +74,11 @@ MAX_FLIP_RATE = 0.01
 # relative; f32 sums over up to 49*35 terms in another order
 K2_REL = {"bf16": 2.0 ** -8, "f32": 1e-4}
 K2_ABS = 1e-3
+# the bf16 model's logits, K2 against its plain version, relative to the
+# largest logit: the two sum in another order, so a bf16 intermediate (diff,
+# pixels_1, pixels_2) may round the other way; one such ulp (2^-8 of one
+# element) moves a logit far less than 2^-8 of the logits' range
+LOGIT_REL = 2.0 ** -8
 # stage 02's labeling batch on the main path (configs/example.conf:126)
 CC_BATCH = 16
 # rounds enough for the plain labeling to reach its fixed point on any frame
@@ -180,15 +190,17 @@ def phase_k1(batch):
 
 
 def head_shapes(cfg):
-    """(name, C_in, N, activation, out dtype) of the four head convs."""
+    """(name, C of x, C of x2, N, activation, out dtype) of the four head
+    convs as the model calls K2: text_conv reads the decoder features alone,
+    the others the diff image (x) beside a feature map (x2)."""
     import torch
 
     c, up1 = cfg.in_channels, cfg.up_filters[0]
     p1, p2 = cfg.pixel_features
-    return [("text_conv", up1, 1, None, torch.float32),
-            ("pixels_1", c + up1, p1, "gelu", torch.bfloat16),
-            ("pixels_2", c + p1, p2, "gelu", torch.bfloat16),
-            ("out_conv", c + p2, 1, None, torch.float32)]
+    return [("text_conv", up1, 0, 1, None, torch.float32),
+            ("pixels_1", c, up1, p1, "gelu", torch.bfloat16),
+            ("pixels_2", c, p1, p2, "gelu", torch.bfloat16),
+            ("out_conv", c, p2, 1, None, torch.float32)]
 
 
 def phase_k2(batch, cfg):
@@ -201,58 +213,79 @@ def phase_k2(batch, cfg):
     gen = torch.Generator(device="cuda").manual_seed(2)
     k = cfg.pixel_kernel_size
     hp, wp = 544, 960
-    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+              "library_with_cat_ms": 0.0}
     flops = n_bytes = 0
     max_err = 0.0
-    for name, c_in, n_out, act, out_dtype in head_shapes(cfg):
-        x = torch.randn(batch, c_in, hp, wp, device="cuda", generator=gen).to(
-            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+    def bf16_input(channels):
+        return torch.randn(batch, channels, hp, wp, device="cuda",
+                           generator=gen).to(torch.bfloat16).contiguous(
+                               memory_format=torch.channels_last)
+
+    for name, c1, c2, n_out, act, out_dtype in head_shapes(cfg):
+        c_in = c1 + c2
+        x = bf16_input(c1)
+        x2 = bf16_input(c2) if c2 else None
         weight = (torch.randn(n_out, c_in, k, k, device="cuda", generator=gen)
                   / (c_in * k * k) ** 0.5).to(torch.bfloat16)
         bias = (torch.randn(n_out, device="cuda", generator=gen) * 0.1).to(
             torch.bfloat16)
-        got = conv_same_nhwc(x, weight, bias, act, out_dtype).float()
-        ref = conv_same_plain(x, weight, bias, act, torch.float32)
+        got = conv_same_nhwc(x, weight, bias, act, out_dtype, x2=x2).float()
+        ref = conv_same_plain(x, weight, bias, act, torch.float32, x2=x2)
         err = (got - ref).abs()
         kind = "f32" if out_dtype == torch.float32 else "bf16"
         excess = (err - K2_REL[kind] * ref.abs() - K2_ABS).max().item()
         max_err = max(max_err, err.max().item())
         del got, ref, err
         reps = 3
-        ms = cuda_ms(lambda: conv_same_nhwc(x, weight, bias, act, out_dtype),
-                     reps)
+        ms = cuda_ms(lambda: conv_same_nhwc(x, weight, bias, act, out_dtype,
+                                            x2=x2), reps)
         plain_ms = cuda_ms(lambda: conv_same_plain(x, weight, bias, act,
-                                                   torch.float32), reps)
-        library_ms = cuda_ms(lambda: F.conv2d(x, weight, bias,
+                                                   torch.float32, x2=x2),
+                           reps)
+        inputs = [x] if x2 is None else [x, x2]
+        xcat = torch.cat(inputs, dim=1)
+        library_ms = cuda_ms(lambda: F.conv2d(xcat, weight, bias,
                                               padding=k // 2), reps)
+        del xcat
+        cat_ms = cuda_ms(lambda: F.conv2d(torch.cat(inputs, dim=1), weight,
+                                          bias, padding=k // 2), reps)
         out_bytes = 4 if out_dtype == torch.float32 else 2
         f = 2 * k * k * c_in * n_out * batch * hp * wp
         b = batch * hp * wp * (2 * c_in + out_bytes * n_out) \
             + weight.numel() * 2 + n_out * 2
+        bound = max(f / PEAK_BF16_FLOPS, b / PEAK_BYTES_PER_S) * 1e3
         flops += f
         n_bytes += b
-        log(f"K2 {name} [{batch},{c_in},{hp},{wp}] -> {n_out} ch k={k} "
+        log(f"K2 {name} [{batch},{c1}+{c2},{hp},{wp}] -> {n_out} ch k={k} "
             f"{act or 'linear'} {kind}: max |err| {max_err:.3g} (excess over "
             f"tolerance {excess:.3g}), kernel {ms:.3f} ms, plain f32 "
-            f"{plain_ms:.3f} ms, cuDNN bf16 {library_ms:.3f} ms, "
-            f"{f / ms / 1e9:.1f} TFLOP/s")
+            f"{plain_ms:.3f} ms, cuDNN bf16 on the concat {library_ms:.3f} "
+            f"ms, cat + cuDNN {cat_ms:.3f} ms; {f / ms / 1e9:.1f} TFLOP/s, "
+            f"bound {bound:.3f} ms = {bound / ms:.3f} of the kernel's time; "
+            f"faster than cuDNN: {ms < library_ms}")
         if excess > 0:
             raise AssertionError(f"K2 {name} outside tolerance")
         totals["ms"] += ms
         totals["plain_ms"] += plain_ms
         totals["library_ms"] += library_ms
-        del x
+        totals["library_with_cat_ms"] += cat_ms
+        del x, x2, inputs
         torch.cuda.empty_cache()
     ops_ms = flops / PEAK_BF16_FLOPS * 1e3
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
-    log(f"K2 four heads per batch of {batch}: kernel {totals['ms']:.3f} ms, "
-        f"bound {max(ops_ms, bytes_ms):.3f} ms ({flops / 1e9:.1f} GFLOP, "
-        f"{n_bytes / 1e6:.1f} MB)")
+    bound = max(ops_ms, bytes_ms)
+    log(f"K2 four heads per batch of {batch}: kernel {totals['ms']:.3f} ms "
+        f"({flops / totals['ms'] / 1e9:.1f} TFLOP/s), cuDNN bf16 "
+        f"{totals['library_ms']:.3f} ms, cat + cuDNN "
+        f"{totals['library_with_cat_ms']:.3f} ms, bound {bound:.3f} ms "
+        f"({flops / 1e9:.1f} GFLOP, {n_bytes / 1e6:.1f} MB) = "
+        f"{bound / totals['ms']:.3f} of the kernel's time")
     return {"name": "conv_same_nhwc", "route": "cuda",
             "source": "lecturemath_tpu_torch/csrc/conv7.cu",
             "replaces": "lecturemath_tpu/ops/pallas_conv7.py:42",
-            "max_abs_err": max_err, **totals,
-            "bound_ms": max(ops_ms, bytes_ms),
+            "max_abs_err": max_err, **totals, "bound_ms": bound,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
@@ -448,12 +481,81 @@ def phase_main_path(conf, counters):
         raise AssertionError(f"stage-01 flip rate {flip_rate} > "
                              f"{MAX_FLIP_RATE}")
 
+    random_head_check(binarizer.model, frames)
+
     device_breakdown(lambda: run_lecture(driver, lecture, binarizer,
                                          source=make_source(), export=False),
                      "express")
     return launches, {"fps": N_FRAMES / wall, "wall_s": wall,
                       "batch": binarizer.batch_size, "flip_rate": flip_rate,
                       "indices": list(indices)}
+
+
+def random_head_check(model, frames):
+    """K2 inside the forward, where the threshold weights cannot see it: the
+    bf16 model with seeded random head weights (xavier-normal, as the
+    trunk) on 8 frames, kernel path against the same weights on the plain
+    path. Also logs each torch.cat of both forwards: on the kernel path no
+    head concat (diff first) may remain."""
+    import numpy as np
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    from lecturemath_tpu_torch.models.fcn_lecturenet import (
+        FCNLectureNet, pad_to_multiple, prepare_images)
+
+    class CatLog(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.channels = []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is torch.cat:
+                self.channels.append([t.shape[1] for t in args[0]])
+            return func(*args, **(kwargs or {}))
+
+    rng = np.random.default_rng(3)
+    state = {key: value.clone() for key, value in model.state_dict().items()}
+    for head in ("conv_reconstruct", "conv_text_mask_out", "conv_pixels_1",
+                 "conv_pixels_2", "conv_out"):
+        weight = state[f"{head}.0.weight"]
+        n_out, c_in, kh, kw = weight.shape
+        std = (2.0 / ((n_out + c_in) * kh * kw)) ** 0.5
+        state[f"{head}.0.weight"] = torch.from_numpy(
+            rng.normal(0.0, std, weight.shape).astype(np.float32)).to(weight)
+        state[f"{head}.0.bias"] = torch.from_numpy(
+            rng.normal(0.0, 0.1, (n_out,)).astype(np.float32)).to(weight)
+    device = model.mid_block[0].weight.device
+    x, _ = pad_to_multiple(prepare_images(frames.to(device)))
+    x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    results = {}
+    for plain in (False, True):
+        net = FCNLectureNet(model.config, fold_bn=True, plain=plain)
+        net.load_state_dict(state)
+        net = net.to(device=device, dtype=torch.bfloat16,
+                     memory_format=torch.channels_last).eval()
+        with torch.no_grad(), CatLog() as cats:
+            bin_logits, text_logits, _ = net(x)
+        results[plain] = (bin_logits.float(), text_logits.float(),
+                          cats.channels)
+        del net
+    errors = {}
+    for i, name in enumerate(("bin_logits", "text_logits")):
+        ours, ref = results[False][i], results[True][i]
+        errors[name] = ((ours - ref).abs().max().item(),
+                        ref.abs().max().item())
+    log(f"random heads, bf16, {x.shape[0]} frames, K2 against its plain "
+        f"version: max |err| and max |logit| "
+        f"{json.dumps({k: [round(v, 6) for v in e] for k, e in errors.items()})} "
+        f"(bound {LOGIT_REL} of max |logit|); torch.cat channels, kernel "
+        f"path {results[False][2]}, plain path {results[True][2]}")
+    for name, (err, scale) in errors.items():
+        if not err <= LOGIT_REL * scale:
+            raise AssertionError(f"random heads: {name} differ by {err}")
+    head_cats = [c for c in results[False][2]
+                 if c[0] == model.config.in_channels]
+    if head_cats:
+        raise AssertionError(f"head concats on the kernel path: {head_cats}")
 
 
 def profiled_spans(run):
@@ -490,17 +592,19 @@ def device_breakdown(run, what):
         log(f"profiled {what}: the profiler saw no device events; device "
             f"breakdown not measured")
         return
-    groups, names = {}, {}
+    groups, counts, names = {}, {}, {}
     busy_us, end_us = 0.0, float("-inf")
     for start, end, cat, name in spans:
-        group = ("K2 conv_same_kernel" if "conv_same_kernel" in name else
+        group = ("K2 conv_igemm_kernel" if "conv_igemm_kernel" in name else
                  "K1 threshold_pack_kernel" if "threshold_pack_kernel" in name
                  else "K3 cc_*_kernel" if any(
                      f"cc_{step}_kernel" in name
                      for step in ("local", "merge", "flatten"))
+                 else "torch.cat copies" if "CatArrayBatchedCopy" in name
                  else "copies and memsets" if cat != "kernel"
                  else "trunk and glue (cuDNN, elementwise)")
         groups[group] = groups.get(group, 0.0) + (end - start) / 1e3
+        counts[group] = counts.get(group, 0) + 1
         names[name[:60]] = names.get(name[:60], 0.0) + (end - start) / 1e3
         busy_us += max(0.0, end - max(start, end_us))
         end_us = max(end_us, end)
@@ -508,7 +612,8 @@ def device_breakdown(run, what):
     log(f"profiled {what} ({wall_ms:.1f} ms wall under the profiler): "
         f"device busy {busy_us / 1e3:.1f} ms = "
         f"{busy_us / 1e3 / wall_ms:.3f} of the wall; device ms by group "
-        f"{json.dumps({k: round(v, 3) for k, v in groups.items()})}; top "
+        f"{json.dumps({k: round(v, 3) for k, v in groups.items()})}; "
+        f"launches by group {json.dumps(counts)}; top "
         f"kernels {json.dumps({k: round(v, 3) for k, v in top})}")
 
 def snake(h, w, pitch):
@@ -820,7 +925,11 @@ def main():
         f"sm_90a): {sorted(logs)}")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or line.startswith("built"):
+            if "Compiling entry function" in line:
+                mangled = line.split("'")[1]
+                log(f"  {name}: {mangled}")
+            elif ("registers" in line or "spill" in line
+                  or line.startswith("built")):
                 log(f"  {name}: {line.strip()}")
 
     failures = []

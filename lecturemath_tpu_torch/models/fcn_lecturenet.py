@@ -15,11 +15,13 @@ module names, so a reference ``state_dict`` loads with ``strict=True``:
   * text-mask head ``conv_text_mask_out``: conv(pixel_k)+BN -> logits
   * binarization head: diff = (x0 - rec) * sigmoid(text), then
     ``conv_pixels_1``, ``conv_pixels_2`` (conv+BN+GELU) and ``conv_out``
-    (conv+BN), each re-reading diff
+    (conv+BN), each reading diff concatenated with the previous features
 
 The four pixel_k head convs go through ``ops.conv7.conv_same_nhwc`` (kernel
-K2 on the card); the trunk's convs, deconvs and pools stay ``F.conv2d``,
-``F.conv_transpose2d`` and ``F.max_pool2d``. GELU is the exact erf form.
+K2 on the card), which reads diff and the feature map as two tensors, so
+the heads' concats are never built; the trunk's convs, deconvs and pools
+stay ``F.conv2d``, ``F.conv_transpose2d`` and ``F.max_pool2d``. GELU is the
+exact erf form.
 """
 
 from __future__ import annotations
@@ -144,17 +146,22 @@ class FCNLectureNet(nn.Module):
         return self.mid_block[0].weight.dtype
 
     def _head(self, block: nn.Sequential, x: torch.Tensor, gelu: bool,
-              out_dtype: torch.dtype) -> torch.Tensor:
+              out_dtype: torch.dtype,
+              x2: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One pixel_k head conv through kernel K2 (its plain version with
-        ``plain``); bias and GELU fuse into the kernel once BN is folded."""
+        ``plain``) on ``x``, or on ``x`` and ``x2`` read as their channel
+        concat without building it; bias and GELU fuse into the kernel once
+        BN is folded."""
         conv, bn = block[0], block[1]
         folded = isinstance(bn, nn.Identity)
         conv_fn = conv_same_plain if self.plain else conv_same_nhwc
         x = x.contiguous(memory_format=torch.channels_last)
+        if x2 is not None:
+            x2 = x2.contiguous(memory_format=torch.channels_last)
         if folded:
             return conv_fn(x, conv.weight, conv.bias,
-                           "gelu" if gelu else None, out_dtype)
-        y = bn(conv_fn(x, conv.weight, conv.bias, None, x.dtype))
+                           "gelu" if gelu else None, out_dtype, x2)
+        y = bn(conv_fn(x, conv.weight, conv.bias, None, x.dtype, x2))
         if gelu:
             y = F.gelu(y)
         return y.to(out_dtype)
@@ -204,12 +211,12 @@ class FCNLectureNet(nn.Module):
         if mode == "diff":
             return diff.float(), x_up1.float()
 
-        h = self._head(self.conv_pixels_1, torch.cat([diff, x_up1], dim=1),
-                       True, dt)
-        h = self._head(self.conv_pixels_2, torch.cat([diff, h], dim=1),
-                       True, dt)
-        bin_logits = self._head(self.conv_out, torch.cat([diff, h], dim=1),
-                                False, torch.float32)
+        # channels_last once: the three heads each read diff beside a
+        # feature map
+        diff = diff.contiguous(memory_format=torch.channels_last)
+        h = self._head(self.conv_pixels_1, diff, True, dt, x_up1)
+        h = self._head(self.conv_pixels_2, diff, True, dt, h)
+        bin_logits = self._head(self.conv_out, diff, False, torch.float32, h)
         return bin_logits, text_logits, rec
 
 

@@ -2,19 +2,21 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled at first
 use with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
-``csrc/build/lib<name>.so`` (rebuilt when the source is newer), then loaded
-with ``ctypes``. Nothing is compiled when a module is imported, and a failed
-build raises: there is no other path for a CUDA tensor.
+``csrc/build/lib<name>.so`` (rebuilt when the source, or a ``csrc`` header
+it includes, is newer), then loaded with ``ctypes``. Nothing is compiled
+when a module is imported, and a failed build raises: there is no other
+path for a CUDA tensor.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import re
 import subprocess
 import threading
 import time
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, List, Sequence
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
@@ -43,11 +45,27 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}.so")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources_of(name: str) -> List[str]:
+    """``csrc/<name>.cu`` and every ``csrc`` header it includes with
+    ``#include "..."``, directly or through another such header."""
+    paths = [os.path.join(CSRC_DIR, f"{name}.cu")]
+    for path in paths:
+        with open(path) as f:
+            for header in _INCLUDE.findall(f.read()):
+                header = os.path.join(os.path.dirname(path), header)
+                if os.path.exists(header) and header not in paths:
+                    paths.append(header)
+    return paths
+
+
 def _stale(name: str) -> bool:
+    """No library yet, or one older than its source or a header of it."""
     lib = library_path(name)
-    source = os.path.join(CSRC_DIR, f"{name}.cu")
-    return (not os.path.exists(lib)
-            or os.path.getmtime(lib) < os.path.getmtime(source))
+    return (not os.path.exists(lib) or os.path.getmtime(lib) < max(
+        os.path.getmtime(path) for path in sources_of(name)))
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:

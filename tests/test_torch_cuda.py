@@ -28,7 +28,8 @@ THRESHOLD = 128
 # sigmoid differs by a few f32 ulps between torch and CUDA's expf: a pixel
 # whose sigmoid*255 lies within 2 ulp of the threshold may flip
 BAND = 2 * float(np.spacing(np.float32(THRESHOLD)))
-# f32 output: f32 sums of up to 49*35 bf16 products in another order
+# f32 output: f32 sums of up to 49*35 bf16 products (exact in f32) taken in
+# another order, on the tensor cores for the kernel
 CONV_ATOL, CONV_RTOL = 1e-3, 1e-5
 # bf16 output: one rounding to 8 mantissa bits (2^-8 relative)
 BF16_RTOL = 2.0 ** -8
@@ -76,30 +77,64 @@ def test_threshold_pack_matches_plain(cuda, shape, crop):
     assert differ.sum() <= 0.05 * band.sum()
 
 
-@pytest.mark.parametrize("c_in,n_out,k,activation,out_dtype", [
-    (32, 1, 7, None, torch.float32),        # text_conv
-    (35, 32, 7, "gelu", torch.bfloat16),    # pixels_1
-    (35, 16, 7, "gelu", torch.float32),     # pixels_2, f32 out
-    (19, 1, 7, None, torch.float32),        # out_conv
-    (5, 3, 3, None, torch.float32),         # TINY heads
-    (8, 40, 5, "gelu", torch.float32),      # two channel groups, k=5
-])
-def test_conv_same_nhwc_matches_plain(cuda, c_in, n_out, k, activation,
-                                      out_dtype):
-    gen = torch.Generator(device=cuda).manual_seed(c_in * 100 + n_out)
-    x = torch.randn(2, c_in, 37, 70, device=cuda, generator=gen).to(
+def _bf16_nhwc(shape, gen, device):
+    return torch.randn(*shape, device=device, generator=gen).to(
         torch.bfloat16).contiguous(memory_format=torch.channels_last)
-    weight = (torch.randn(n_out, c_in, k, k, device=cuda, generator=gen)
+
+
+# (C of x, C of x2, N, k, activation, out dtype, (H, W)); H and W are not
+# multiples of the kernel's 16 x 32 block tile
+@pytest.mark.parametrize("c_in,c2,n_out,k,activation,out_dtype,hw", [
+    (32, 0, 1, 7, None, torch.float32, (37, 70)),           # text_conv
+    (3, 32, 32, 7, "gelu", torch.bfloat16, (37, 70)),       # pixels_1
+    (3, 32, 16, 7, "gelu", torch.bfloat16, (61, 129)),      # pixels_2
+    (3, 16, 1, 7, None, torch.float32, (61, 129)),          # out_conv
+    (35, 0, 32, 7, "gelu", torch.bfloat16, (37, 70)),       # one tensor, C=35
+    (35, 0, 16, 7, "gelu", torch.float32, (61, 129)),       # f32 out
+    (19, 0, 1, 7, None, torch.float32, (37, 70)),           # C=19
+    (5, 0, 3, 3, None, torch.float32, (37, 70)),            # TINY heads
+    (8, 0, 40, 5, "gelu", torch.float32, (61, 129)),        # two groups, k=5
+    (5, 3, 8, 1, None, torch.float32, (61, 129)),           # k=1, unaligned
+    (16, 19, 24, 3, "gelu", torch.bfloat16, (37, 70)),      # k=3, N=24
+])
+def test_conv_same_nhwc_matches_plain(cuda, c_in, c2, n_out, k, activation,
+                                      out_dtype, hw):
+    gen = torch.Generator(device=cuda).manual_seed(c_in * 100 + c2 * 10
+                                                   + n_out)
+    height, width = hw
+    x = _bf16_nhwc((2, c_in, height, width), gen, cuda)
+    x2 = _bf16_nhwc((2, c2, height, width), gen, cuda) if c2 else None
+    weight = (torch.randn(n_out, c_in + c2, k, k, device=cuda, generator=gen)
               * 0.05).to(torch.bfloat16)
     bias = torch.randn(n_out, device=cuda, generator=gen)
     before = conv_same_nhwc.launches
-    got = conv_same_nhwc(x, weight, bias, activation, out_dtype)
+    got = conv_same_nhwc(x, weight, bias, activation, out_dtype, x2=x2)
     assert conv_same_nhwc.launches == before + 1
-    assert got.dtype == out_dtype and tuple(got.shape) == (2, n_out, 37, 70)
+    assert got.dtype == out_dtype
+    assert tuple(got.shape) == (2, n_out, height, width)
     assert got.is_contiguous(memory_format=torch.channels_last)
-    ref = conv_same_plain(x, weight, bias, activation, torch.float32)
+    ref = conv_same_plain(x, weight, bias, activation, torch.float32, x2=x2)
     rtol = CONV_RTOL if out_dtype == torch.float32 else BF16_RTOL
     torch.testing.assert_close(got.float(), ref, atol=CONV_ATOL, rtol=rtol)
+
+
+def test_conv_same_nhwc_rounds_f32_weights_to_bf16(cuda):
+    """f32 weights that bf16 cannot hold: the kernel computes with them
+    rounded to bf16, which is what the plain version does for a bf16
+    input."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = _bf16_nhwc((2, 3, 37, 70), gen, cuda)
+    x2 = _bf16_nhwc((2, 32, 37, 70), gen, cuda)
+    weight = torch.randn(16, 35, 7, 7, device=cuda, generator=gen) * 0.05
+    assert not torch.equal(weight, weight.bfloat16().float())
+    bias = torch.randn(16, device=cuda, generator=gen)
+    got = conv_same_nhwc(x, weight, bias, "gelu", torch.float32, x2=x2)
+    ref = conv_same_plain(x, weight.bfloat16(), bias, "gelu",
+                          torch.float32, x2=x2)
+    torch.testing.assert_close(got, ref, atol=CONV_ATOL, rtol=CONV_RTOL)
+    torch.testing.assert_close(
+        conv_same_plain(x, weight, bias, "gelu", torch.float32, x2=x2), ref,
+        atol=0, rtol=0)
 
 
 def test_conv7_same_layout(cuda):
@@ -133,6 +168,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="odd k"):
         conv_same_nhwc(x, torch.zeros(2, 4, 4, 4, device=cuda,
                                       dtype=torch.bfloat16))
+    x2 = torch.zeros(1, 3, 8, 8, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="channels_last"):
+        conv_same_nhwc(x, torch.zeros(2, 7, 3, 3, device=cuda,
+                                      dtype=torch.bfloat16), x2=x2)
+    x2 = x2.contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="does not fit"):
+        conv_same_nhwc(x, weight, x2=x2)
+    with pytest.raises(ValueError, match="does not match"):
+        conv_same_nhwc(x, weight, x2=x2[:, :, :4])
 
 
 # --- kernel K3: CC labeling, exact against the plain version at its fixed
