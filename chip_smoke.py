@@ -42,14 +42,30 @@ then, in phases:
      the config; the device-labeled stage-02 tracker must equal a
      host-labeled one on the same artifact, the summary must hold at least 2
      inked keyframes split where express split them, and K1, K2 and K3 must
-     all have launched. Each stage's wall time is printed.
+     all have launched. Each stage's wall time is printed;
+  7. the serving path at the same widths: BinarizeService with a 960x540
+     bucket, batch buckets 1-8 and a 5 ms window captures one CUDA graph per
+     bucket (capture seconds and the graph pool's bytes printed); each
+     bucket's graph output must be bit-identical to the eager kernel path
+     and within the 1% flip rate of the plain f32 path, with its device ms
+     per dispatch by graph replay and eager, and K1's and K2's device µs per
+     replay; then serve() over HTTP on 127.0.0.1: /healthz, 1, 8 and 32
+     clients in client processes of their own (req/s, mean batch, p50,
+     p99; a lone client's answers equal a direct binarization), the host
+     ms of a request's steps, 1920x1080, 1280x720 and 640x480 bodies
+     checked against a direct binarization, a /reload mid-traffic to a
+     threshold_gray=5
+     checkpoint (every answer the old model's or the new one's, no error),
+     a body that is not an image (400) and /stats; then ensure_backend and
+     the doctor CLI.
 
-The launch counts are set to 0 just before each of the two paths (phases 4
-and 6) and read just after. It prints one JSON line of kernel numbers, then
-as its last line
-``{"ok": true, "device": {...}}``, and exits 0 only when every phase passed.
-Without CUDA, or without the package beside it, it exits non-zero and prints
-no result.
+The launch counts are set to 0 just before each of the three paths (phases
+4, 6 and 7) and read just after. Serving launches are graph replays times
+the launches each graph holds, counted by the service: the wrappers count
+once when a graph is captured. It prints one JSON line of kernel numbers,
+then as its last line ``{"ok": true, "device": {...}}``, and exits 0 only
+when every phase passed. Without CUDA, or without the package beside it, it
+exits non-zero and prints no result.
 """
 
 import json
@@ -978,6 +994,730 @@ def stage02_profile(conf):
         f"{json.dumps({k: round(v, 4) for k, v in seconds.items()})}")
 
 
+# the serving phase: the bucket a request is resized to, the largest batch
+# bucket, the micro-batching window, and the HTTP client's timeout
+SERVE_MAX_BATCH = 8
+SERVE_WINDOW_MS = 5.0
+# the kernels a serving graph holds: profiler group -> launch counter
+SERVING_KERNELS = {"K2": "conv_same_nhwc", "K1": "threshold_pack"}
+HTTP_TIMEOUT_S = 120
+# seconds between starting the client processes and their first requests
+CLIENT_START_S = 8.0
+
+
+def percentile(values, q):
+    import numpy as np
+
+    return float(np.percentile(np.asarray(values, np.float64), q))
+
+
+def encode_png_filtered(rgb, kinds=None):
+    """PNG bytes of uint8 RGB [H, W, 3] with row y filtered by kinds[y %
+    len(kinds)], or by libpng's adaptive heuristic (the default of Pillow
+    and of browsers' encoders): the filter of None, Sub, Up, Avg and Paeth
+    whose bytes, read as signed, sum to the least magnitude. zlib level
+    6. Returns (bytes, rows of each filter type)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    height, width, channels = rgb.shape
+    x = rgb.reshape(height, width * channels).astype(np.int16)
+    left = np.zeros_like(x)
+    left[:, channels:] = x[:, :-channels]
+    up = np.zeros_like(x)
+    up[1:] = x[:-1]
+    up_left = np.zeros_like(x)
+    up_left[1:, channels:] = x[:-1, :-channels]
+    p = left + up - up_left
+    pa, pb, pc = abs(p - left), abs(p - up), abs(p - up_left)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, up_left))
+    preds = np.stack([np.zeros_like(x), left, up, (left + up) >> 1, paeth])
+    filtered = ((x[None] - preds) & 0xFF).astype(np.uint8)
+    if kinds is None:
+        signed = filtered.astype(np.int32)
+        cost = np.minimum(signed, 256 - signed).sum(axis=2)
+        choice = cost.argmin(axis=0)
+    else:
+        choice = np.asarray(kinds)[np.arange(height) % len(kinds)]
+    raw = np.concatenate([choice.astype(np.uint8)[:, None],
+                          filtered[choice, np.arange(height)]], axis=1)
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    ihdr = struct.pack(">IIBBBBB", width, height, 8, 2, 0, 0, 0)
+    body = (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + chunk(b"IEND", b""))
+    return body, np.bincount(choice, minlength=5).tolist()
+
+
+def http_post(url, body):
+    """(status, body bytes, seconds) of one POST; an HTTP error status is
+    returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    request = urllib.request.Request(url, data=body, method="POST")
+    try:
+        with urllib.request.urlopen(request, timeout=HTTP_TIMEOUT_S) as r:
+            status, data = r.status, r.read()
+    except urllib.error.HTTPError as err:
+        status, data = err.code, err.read()
+    return status, data, time.perf_counter() - t0
+
+
+def http_get_json(url):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=HTTP_TIMEOUT_S) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as err:
+        return err.code, json.loads(err.read())
+
+
+def client_process(base, bodies, jobs, start_at):
+    """A client process: one thread per job (a list of body indices sent
+    one after another), all starting at ``start_at`` on the wall clock the
+    parent shares; returns [(index, start, status, seconds, answer)]."""
+    import threading
+
+    out = []
+    lock = threading.Lock()
+    late = time.time() - start_at
+    if late > 0:
+        raise RuntimeError(f"client process started {late:.3f} s late")
+    time.sleep(start_at - time.time())
+
+    def run(job):
+        for k in job:
+            start = time.time()
+            status, data, seconds = http_post(f"{base}/binarize", bodies[k])
+            with lock:
+                out.append((k, start, status, seconds, data))
+
+    threads = [threading.Thread(target=run, args=(job,)) for job in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def load_clients(base, bodies, clients, per_client):
+    """``clients`` clients, each sending ``per_client`` requests one after
+    another, spread over up to 8 client processes that all start at one
+    moment (``CLIENT_START_S`` after the call, time enough for the
+    processes to come up). Returns (answers, that moment)."""
+    import concurrent.futures
+    import multiprocessing
+
+    processes = min(clients, 8)
+    jobs = [[(c + i) % len(bodies) for i in range(per_client)]
+            for c in range(clients)]
+    start_at = time.time() + CLIENT_START_S
+    with concurrent.futures.ProcessPoolExecutor(
+            processes, mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = [pool.submit(client_process, base, bodies,
+                               jobs[p::processes], start_at)
+                   for p in range(processes)]
+        return ([answer for future in futures for answer in future.result()],
+                start_at)
+
+
+def host_breakdown(bodies, service):
+    """Host ms of the server's per-request steps, by the host clock: the
+    PNG decode of each body in ``bodies`` (name -> body; the first is a
+    960x540 body as encode_png writes it), the answer's PNG encode, and a
+    bucket-1 dispatch (upload, replay, fetch, unpack); then decodes a
+    second in 1 and 8 threads, and the dispatch's ms while 8 threads
+    decode."""
+    import numpy as np
+
+    from lecturemath_tpu_torch.pipeline.server import decode_image
+    from lecturemath_tpu_torch.utils.png import encode_png
+
+    steps = {}
+    for name, data in bodies.items():
+        decode_image(data)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            decode_image(data)
+        steps[f"decode_png {name}"] = (time.perf_counter() - t0) * 100
+    body = next(iter(bodies.values()))
+    rgb = decode_image(body)
+    binary = service._dispatch(rgb[None])[0]
+    t0 = time.perf_counter()
+    for _ in range(10):
+        service._dispatch(rgb[None])
+    steps["dispatch bucket 1"] = (time.perf_counter() - t0) * 100
+    t0 = time.perf_counter()
+    for _ in range(10):
+        encode_png(np.ascontiguousarray(binary))
+    steps["encode_png"] = (time.perf_counter() - t0) * 100
+    steps["batch window"] = service.batch_window_s * 1e3
+    log(f"serving host ms per request step (host clock, mean of 10): "
+        f"{json.dumps({k: round(v, 3) for k, v in steps.items()})}")
+
+    # do the handler threads' decodes overlap, and what do they cost the
+    # worker's dispatch? 8 threads decode 8 bodies each while this thread
+    # dispatches bucket 1 ten times
+    import threading
+
+    decodes = {}
+    for threads in (1, 8):
+        busy = [threading.Thread(target=lambda: [decode_image(body)
+                                                 for _ in range(8)])
+                for _ in range(threads)]
+        t0 = time.perf_counter()
+        for t in busy:
+            t.start()
+        dispatch_s = []
+        if threads > 1:
+            for _ in range(10):
+                t1 = time.perf_counter()
+                service._dispatch(rgb[None])
+                dispatch_s.append(time.perf_counter() - t1)
+        for t in busy:
+            t.join()
+        decodes[threads] = (8 * threads / (time.perf_counter() - t0),
+                            dispatch_s)
+    log(f"serving PNG decodes a second in 1 / 8 threads: "
+        f"{decodes[1][0]:.1f} / {decodes[8][0]:.1f}; bucket-1 dispatch ms "
+        f"while 8 threads decode: mean "
+        f"{np.mean(decodes[8][1]) * 1e3:.3f}, max "
+        f"{np.max(decodes[8][1]) * 1e3:.3f} (alone "
+        f"{steps['dispatch bucket 1']:.3f})")
+    return steps
+
+
+def pool_bytes(pool):
+    """Device bytes of the caching allocator's segments in a graph pool."""
+    import torch
+
+    return sum(segment["total_size"]
+               for segment in torch.cuda.memory_snapshot()
+               if tuple(segment.get("segment_pool_id", ())) == tuple(pool))
+
+
+def kernel_us_by_group(run, reps):
+    """Device µs a call of ``run()`` in K2, K1 and other kernels, and the
+    launches of each a call, from torch.profiler over ``reps`` calls (None
+    when it saw no kernels)."""
+    _, spans = profiled_spans(lambda: [run() for _ in range(reps)])
+    if not spans:
+        return None
+    out = {"K2": 0.0, "K1": 0.0, "other": 0.0,
+           "launches": {"K2": 0, "K1": 0, "other": 0}}
+    for start, end, cat, name in spans:
+        if cat != "kernel":
+            continue
+        group = ("K2" if "conv_igemm_kernel" in name else
+                 "K1" if "threshold_pack_kernel" in name else "other")
+        out[group] += (end - start) / reps
+        out["launches"][group] += 1
+    out["launches"] = {k: v / reps for k, v in out["launches"].items()}
+    return out
+
+
+def forward_and_pack_launches(binarizer, frames):
+    """(device kernels and copies one eager packed forward launches, those
+    that packing the four heads' K2 weights launches) under
+    torch.profiler."""
+    import torch
+
+    from lecturemath_tpu_torch.ops.conv7 import n_tiles, pack_weights
+
+    model = binarizer.model
+
+    def pack():
+        for name, (c1, c2) in model.head_inputs().items():
+            conv = getattr(model, name)[0]
+            pack_weights(conv.weight, c1, c2, n_tiles(conv.weight.shape[0]))
+            conv.bias.detach().float().contiguous()
+
+    counts = []
+    for run in (lambda: binarizer._packed_fn(frames), pack):
+        run()
+        torch.cuda.synchronize()
+        _, spans = profiled_spans(run)
+        counts.append(len(spans))
+    return counts
+
+
+def stage01_host_paths(config):
+    """Stage 01 on the card where it once imported OpenCV and Pillow: four
+    3840x2160 frames (above the 2.5 MP cap) halved on the host to 1920x1080
+    by each filter, binarized, and resized back by nearest; and eight
+    960x540 frames uploaded as I420. Each output is held against the same
+    frames binarized directly (4K) or uploaded as RGB (I420), within the
+    flip bound, and the numpy resampling against Pillow and OpenCV where
+    they import. Returns the host ms per frame of each host step (host
+    clock), Pillow's and OpenCV's beside them where they import."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from lecturemath_tpu_torch.models.fcn_lecturenet import (
+        rgb_to_yuv420_host, unpack_bits_host)
+    from lecturemath_tpu_torch.pipeline.binarize import (Binarizer,
+                                                         _downscale_batch)
+    from lecturemath_tpu_torch.pipeline.video import ArraySource
+    from lecturemath_tpu_torch.utils.image import resize_nearest
+    from lecturemath_tpu_torch.utils.synthetic import \
+        SyntheticRGBLectureSource
+
+    def per_frame_ms(fn, n):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3 / n
+
+    uhd = SyntheticRGBLectureSource(
+        seed=3, n_frames=4, height=2160, width=3840, n_boards=2,
+        glyphs_per_board=40, glyph_size=(160, 240))
+    frames = np.stack([uhd.rgb_frame(t).copy() for t in range(4)])
+    half = (1920, 1080)
+    host_ms = {}
+    for filt in ("lanczos", "area"):
+        binarizer = Binarizer.from_config(config, batch_size=4,
+                                          downscale_filter=filt)
+        assert binarizer._packed_fn is not None
+        binarizer.process_source(ArraySource(frames))   # first use
+        (_, _, binaries), ms = per_frame_ms(
+            lambda: binarizer.process_source(ArraySource(frames)), 4)
+        host_ms[f"3840x2160 stage 01 {filt} (whole)"] = ms
+        host_ms[f"3840x2160 halve {filt} (in the stage)"] = \
+            binarizer.stream_stats["downscale_s"] * 1e3 / 4
+        small, ms = per_frame_ms(
+            lambda: _downscale_batch(frames, half, filt), 4)
+        host_ms[f"3840x2160 halve {filt}"] = ms
+        bits = binarizer._packed_fn(torch.from_numpy(small).cuda())
+        direct = unpack_bits_host(bits.cpu().numpy(), half[0])
+        back, ms = per_frame_ms(lambda: [resize_nearest(b, (3840, 2160))
+                                         for b in direct], 4)
+        host_ms["1920x1080 -> 3840x2160 resize_nearest"] = ms
+        flips = max(float(np.mean(ours != 255 - theirs))
+                    for ours, theirs in zip(binaries, back))
+        log(f"stage 01 at 3840x2160, {filt}: {len(binaries)} frames of "
+            f"{binaries[0].shape}, flip rate against the halved frames "
+            f"binarized directly {flips:.6f}")
+        if len(binaries) != 4 or binaries[0].shape != (2160, 3840) or \
+                flips > MAX_FLIP_RATE:
+            raise AssertionError(f"stage 01 at 3840x2160 ({filt}) is wrong")
+        if filt == "lanczos" and importlib.util.find_spec("PIL"):
+            from PIL import Image
+
+            theirs, ms = per_frame_ms(lambda: np.stack([np.asarray(
+                Image.fromarray(f).resize(half, Image.LANCZOS))
+                for f in frames]), 4)
+            host_ms["3840x2160 halve lanczos, Pillow"] = ms
+            if not np.array_equal(small, theirs):
+                raise AssertionError("halve_lanczos differs from Pillow")
+        if filt == "area" and importlib.util.find_spec("cv2"):
+            import cv2
+
+            theirs, ms = per_frame_ms(lambda: np.stack([cv2.resize(
+                f, half, interpolation=cv2.INTER_AREA) for f in frames]), 4)
+            host_ms["3840x2160 halve area, OpenCV"] = ms
+            if not np.array_equal(small, theirs):
+                raise AssertionError("resize_area differs from OpenCV")
+
+    source = make_source()
+    frames = np.stack([source.rgb_frame(t).copy()
+                       for t in np.linspace(0, N_FRAMES - 1, 8).astype(int)])
+    outputs = {}
+    for upload in ("rgb", "yuv420"):
+        binarizer = Binarizer.from_config(config, batch_size=8,
+                                          upload_format=upload)
+        assert binarizer.upload_format == upload
+        _, _, outputs[upload] = binarizer.process_source(ArraySource(frames))
+    flips = float(np.mean(np.stack(outputs["rgb"])
+                          != np.stack(outputs["yuv420"])))
+    planes, ms = per_frame_ms(lambda: rgb_to_yuv420_host(frames), 8)
+    host_ms["960x540 rgb_to_yuv420"] = ms
+    if importlib.util.find_spec("cv2"):
+        import cv2
+
+        theirs, ms = per_frame_ms(lambda: np.stack([cv2.cvtColor(
+            f, cv2.COLOR_RGB2YUV_I420) for f in frames]), 8)
+        host_ms["960x540 rgb_to_yuv420, OpenCV"] = ms
+        if not np.array_equal(planes, theirs):
+            raise AssertionError("rgb_to_yuv420 differs from OpenCV")
+    log(f"stage 01 with I420 uploads: flip rate against RGB uploads "
+        f"{flips:.6f} (chroma of each 2x2 block; bound {MAX_FLIP_RATE})")
+    if flips > MAX_FLIP_RATE:
+        raise AssertionError("I420 uploads flip too many pixels")
+    log(f"stage 01 host ms per frame (host clock): "
+        f"{json.dumps({k: round(v, 3) for k, v in host_ms.items()})}")
+    return host_ms
+
+
+def phase_serving(conf, counters):
+    """The serving path on the card; returns (serving launches by kernel,
+    per-bucket numbers)."""
+    import contextlib
+    import io
+    import threading
+
+    import numpy as np
+    import torch
+
+    from lecturemath_tpu_torch.cli import doctor
+    from lecturemath_tpu_torch.core.backend_probe import ensure_backend
+    from lecturemath_tpu_torch.core.config import Config
+    from lecturemath_tpu_torch.models.convert import (load_checkpoint,
+                                                      save_checkpoint)
+    from lecturemath_tpu_torch.models.fcn_lecturenet import (
+        FCNLectureNet, make_packed_binarizer, unpack_bits_host)
+    from lecturemath_tpu_torch.pipeline.binarize import Binarizer
+    from lecturemath_tpu_torch.pipeline.server import BinarizeService, serve
+    from lecturemath_tpu_torch.utils.image import resize_area, resize_nearest
+    from lecturemath_tpu_torch.utils.png import (decode_png, decode_png_gray,
+                                                 encode_png)
+    from lecturemath_tpu_torch.utils.synthetic import (
+        SyntheticRGBLectureSource, threshold_binarizer_variables)
+
+    config = Config.from_file(conf)
+    blind_path = os.path.join(WORKSPACE, "models", "blind.dat")
+
+    def factory(checkpoint=None):
+        if checkpoint is None:
+            return Binarizer.from_config(config)
+        override = Config({key: config.get(key) for key in config})
+        override.set("BINARIZATION_FCN_LECTURENET_FILENAME",
+                     os.path.basename(checkpoint))
+        return Binarizer.from_config(override)
+
+    source = make_source()
+    frames = np.stack([source.rgb_frame(t).copy()
+                       for t in np.linspace(0, N_FRAMES - 1,
+                                            SERVE_MAX_BATCH).astype(int)])
+
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    reserved0 = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    service = BinarizeService(factory(), model_size=(WIDTH, HEIGHT),
+                              max_batch=SERVE_MAX_BATCH,
+                              batch_window_ms=SERVE_WINDOW_MS,
+                              binarizer_factory=factory)
+    warm_s = time.perf_counter() - t0
+    active = service._active
+    binarizer = active.binarizer
+    if not active.graphs_enabled or \
+            sorted(active.graphs) != service.batch_buckets:
+        raise AssertionError(f"graphs not captured: {sorted(active.graphs)}")
+    log(f"serving: buckets {service.batch_buckets} captured in "
+        f"{active.capture_s:.3f} s (warm-up with the eager first passes "
+        f"{warm_s:.3f} s); graph pool {pool_bytes(active.pool)} B (estimate "
+        f"{service.graph_pool_estimate()} B); reserved +"
+        f"{torch.cuda.memory_reserved() - reserved0} B; launches per replay "
+        f"{json.dumps({b: g.launches for b, g in active.graphs.items()})}; "
+        f"wrapper counts after warm-up (eager first passes and captures) "
+        f"{json.dumps({k: f.launches for k, f in counters.items()})}")
+
+    # per bucket: graph against the eager kernels and the plain f32 path
+    plain = FCNLectureNet(binarizer.model.config, plain=True)
+    plain.load_state_dict(load_checkpoint(os.path.join(
+        WORKSPACE, "models", "smoke.dat")))
+    plain_fn = make_packed_binarizer(
+        Binarizer(plain, batch_size=8, dtype=torch.float32).model)
+    eager_service = BinarizeService(binarizer, model_size=(WIDTH, HEIGHT),
+                                    max_batch=SERVE_MAX_BATCH,
+                                    batch_window_ms=SERVE_WINDOW_MS,
+                                    warmup=False, graphs=False)
+    by_bucket = {}
+    try:
+        for bucket in service.batch_buckets:
+            batch = frames[:bucket]
+            graph = active.graphs[bucket]
+            with active.stream_context():
+                graph_bits = graph.run(batch).clone()
+            eager_bits = binarizer._packed_fn(torch.from_numpy(batch).cuda())
+            plain_bits = plain_fn(torch.from_numpy(batch).cuda())
+            torch.cuda.synchronize()
+            identical = bool(torch.equal(graph_bits, eager_bits))
+            flips = float(np.mean(unpack(graph_bits, WIDTH)
+                                  != unpack(plain_bits, WIDTH)))
+            static_in = graph.static_in
+            graph_ms = cuda_ms(graph.graph.replay, 20)
+            eager_ms = cuda_ms(lambda: binarizer._packed_fn(static_in), 20)
+            dispatch = {}
+            for name, svc in (("graph", service), ("eager", eager_service),
+                              ("graph again", service),
+                              ("eager again", eager_service)):
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    svc._dispatch(batch)
+                dispatch[name] = (time.perf_counter() - t0) / 5 * 1e3
+            groups = kernel_us_by_group(graph.graph.replay, 10)
+            by_bucket[bucket] = {
+                "identical": identical, "flip_rate": flips,
+                "graph_ms": graph_ms, "eager_ms": eager_ms,
+                "dispatch_ms": dispatch, "device_us": groups}
+            log(f"serving bucket {bucket}: graph output bit-identical to the "
+                f"eager kernels {identical}; flip rate against plain f32 "
+                f"{flips:.6f} (bound {MAX_FLIP_RATE}); device ms per dispatch "
+                f"{graph_ms:.3f} by graph replay, {eager_ms:.3f} eager (events "
+                f"around 20 calls); host ms per dispatch with upload, fetch "
+                f"and unpack {json.dumps({k: round(v, 3) for k, v in dispatch.items()})}; "
+                f"device us per replay by group (profiler) "
+                f"{json.dumps(groups and {k: round(v, 1) for k, v in groups.items() if k != 'launches'})}; "
+                f"kernel launches per replay (profiler) "
+                f"{json.dumps(groups and groups['launches'])} against the "
+                f"graph's count at capture {json.dumps(graph.launches)}")
+            if not identical:
+                raise AssertionError(f"bucket {bucket}: graph output differs "
+                                     f"from the eager kernel path")
+            if flips > MAX_FLIP_RATE:
+                raise AssertionError(f"bucket {bucket}: flip rate {flips}")
+            # the service counts replays x the launches counted at capture:
+            # hold that against what a replay really launches
+            if groups is None or any(
+                    groups["launches"][key] != graph.launches[name]
+                    for key, name in SERVING_KERNELS.items()):
+                raise AssertionError(
+                    f"bucket {bucket}: a replay launched "
+                    f"{groups and groups['launches']}, the graph counted "
+                    f"{graph.launches} at capture")
+    finally:
+        eager_service.close()
+    forward_launches, pack_launches = forward_and_pack_launches(
+        binarizer, active.graphs[1].static_in)
+    log(f"device launches per forward at bucket 1 (eager, profiler): "
+        f"{forward_launches} with the heads' packed weights cached; packing "
+        f"them as every forward did before (pack_weights and the f32 bias "
+        f"of the four heads) launches {pack_launches} more")
+
+    # the bits of one frame dispatched alone, as the server should answer
+    def direct(frame):
+        resized = (frame if frame.shape[:2] == (HEIGHT, WIDTH)
+                   else resize_area(frame, (WIDTH, HEIGHT)))
+        bits = binarizer._packed_fn(torch.from_numpy(resized[None]).cuda())
+        binary = unpack_bits_host(bits.cpu().numpy(), WIDTH)[0]
+        if binary.shape != frame.shape[:2]:
+            binary = resize_nearest(binary, (frame.shape[1], frame.shape[0]))
+        return binary
+
+    server = serve(service, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    results = {}
+    try:
+        status, health = http_get_json(f"{base}/healthz")
+        log(f"serving /healthz {status}: {json.dumps(health)}")
+        if status != 200 or health["device"] != "cuda" or not health["graphs"]:
+            raise AssertionError("/healthz is not ok on the card")
+
+        bodies = [encode_png(frame[:, :, ::-1]) for frame in frames]
+        expected = [direct(frame) for frame in frames]
+        # bodies as other writers send them: libpng's adaptive filtering
+        # at 960x540, and 1920x1080 frames (the 2x area path) adaptive or
+        # with every row filter in turn (Avg and Paeth rows included)
+        adaptive, filters = [], {}
+        for frame in frames:
+            body, counts = encode_png_filtered(frame)
+            adaptive.append(body)
+            filters["adaptive 960x540"] = np.add(
+                filters.get("adaptive 960x540", 0), counts).tolist()
+        hd_source = SyntheticRGBLectureSource(
+            seed=2, n_frames=4, height=1080, width=1920, n_boards=2,
+            glyphs_per_board=40, glyph_size=(80, 120))
+        hd_frames = [hd_source.rgb_frame(t).copy() for t in range(4)]
+        hd_bodies = []
+        for t, frame in enumerate(hd_frames):
+            name = ("adaptive 1920x1080" if t % 2 == 0
+                    else "every filter 1920x1080")
+            body, counts = encode_png_filtered(
+                frame, None if t % 2 == 0 else [0, 1, 2, 3, 4])
+            hd_bodies.append(body)
+            filters[name] = np.add(filters.get(name, 0), counts).tolist()
+        hd_expected = [direct(frame) for frame in hd_frames]
+        for body, frame in zip(adaptive + hd_bodies,
+                               list(frames) + hd_frames):
+            if not np.array_equal(decode_png(body), frame):
+                raise AssertionError("decode_png of a filtered body differs "
+                                     "from its frame")
+        log(f"serving bodies' rows by PNG filter (None, Sub, Up, Avg, "
+            f"Paeth): {json.dumps(filters)}")
+
+        def check(status, data, k, what, expected):
+            if status != 200:
+                raise AssertionError(f"{what}: HTTP {status} {data[:200]!r}")
+            answer = decode_png_gray(data)
+            return float(np.mean(answer != expected[k]))
+
+        # concurrent clients, in processes of their own (a client in this
+        # process would hold the server's interpreter lock): answers may
+        # ride buckets 2-8 (another cuDNN choice in the trunk could flip a
+        # pixel on the threshold, hence the flip bound)
+        loads = (("1 client", bodies, expected, 1, 32),
+                 ("8 clients", bodies, expected, 8, 8),
+                 ("32 clients", bodies, expected, 32, 4),
+                 ("8 clients adaptive 960x540", adaptive, expected, 8, 8),
+                 ("8 clients 1920x1080 adaptive and every filter", hd_bodies,
+                  hd_expected, 8, 4))
+        for name, load_bodies, load_expected, clients, per_client in loads:
+            before = service.stats()
+            answers, start_at = load_clients(base, load_bodies, clients,
+                                             per_client)
+            after = service.stats()
+            ends = [a[1] + a[3] for a in answers]
+            latencies = [a[3] for a in answers if a[2] == 200]
+            errors = [a[2] for a in answers if a[2] != 200]
+            shares = [check(status, data, k, name, load_expected)
+                      for k, _, status, _, data in answers if status == 200]
+            batches = after["batches"] - before["batches"]
+            n = clients * per_client
+            results[name] = {
+                "req_s": n / (max(ends) - start_at),
+                "p50_ms": percentile(latencies, 50) * 1e3,
+                "p99_ms": percentile(latencies, 99) * 1e3,
+                "mean_batch": (after["frames"] - before["frames"])
+                / max(batches, 1),
+                "max_flip_rate": max(shares) if shares else None}
+            log(f"serving {name} x {per_client} requests (client "
+                f"processes): {json.dumps({k: v and round(v, 4) for k, v in results[name].items()})}; "
+                f"errors {errors[:3]}")
+            if errors or len(shares) != n:
+                raise AssertionError(f"{len(errors)} failed requests")
+            if max(shares) > MAX_FLIP_RATE:
+                raise AssertionError(f"a concurrent answer flips "
+                                     f"{max(shares)} of its pixels")
+            if clients == 1 and max(shares) > 0:
+                # one client: every request is its own bucket-1 dispatch
+                raise AssertionError("a lone request's answer differs from "
+                                     "the direct binarization")
+        results["host ms"] = host_breakdown(
+            {"encode_png 960x540": bodies[0],
+             "adaptive 960x540": adaptive[0],
+             "adaptive 1920x1080": hd_bodies[0],
+             "every filter 1920x1080": hd_bodies[1]}, service)
+
+        # other sizes: 3840x2160 and 1920x1080 take the integer area path,
+        # 1280x720 the fractional one, 640x480 the upscale
+        for width, height in ((3840, 2160), (1920, 1080), (1280, 720),
+                              (640, 480)):
+            big = SyntheticRGBLectureSource(
+                seed=1, n_frames=4, height=height, width=width, n_boards=1,
+                glyphs_per_board=20, glyph_size=(40, 60))
+            for t in (1, 3):
+                frame = big.rgb_frame(t).copy()
+                status, data, seconds = http_post(
+                    f"{base}/binarize", encode_png(frame[:, :, ::-1]))
+                if status != 200:
+                    raise AssertionError(f"{width}x{height}: HTTP {status}")
+                answer = decode_png_gray(data)
+                differ = int((answer != direct(frame)).sum())
+                log(f"serving {width}x{height} frame {t}: answer "
+                    f"{answer.shape}, {differ} pixels differ from a direct "
+                    f"binarization, {seconds * 1e3:.1f} ms")
+                if answer.shape != (height, width) or differ:
+                    raise AssertionError(f"{width}x{height} answer is wrong")
+
+        # /reload mid-traffic: every answer is the old model's or the new
+        # one's for the batch bucket it rode in
+        save_checkpoint(threshold_binarizer_variables(
+            binarizer.model.config, seed=0, threshold_gray=5.0), blind_path)
+        frame = frames[1]
+
+        def references(model_binarizer):
+            refs = set()
+            for bucket in service.batch_buckets:
+                bits = model_binarizer._packed_fn(torch.from_numpy(
+                    np.stack([frame] * bucket)).cuda())
+                for binary in unpack_bits_host(bits.cpu().numpy(), WIDTH):
+                    refs.add(binary.tobytes())
+            return refs
+
+        old_refs = references(binarizer)
+        answers, errors = [], []
+        stop = threading.Event()
+        body = bodies[1]
+
+        def traffic():
+            while not stop.is_set():
+                status, data, _ = http_post(f"{base}/binarize", body)
+                if status != 200:
+                    errors.append(status)
+                else:
+                    answers.append(decode_png_gray(data).tobytes())
+
+        threads = [threading.Thread(target=traffic) for _ in range(8)]
+        for t in threads:
+            t.start()
+        time.sleep(0.5)
+        status, data, reload_s = http_post(
+            f"{base}/reload", json.dumps({"checkpoint": blind_path}).encode())
+        time.sleep(0.5)
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        new_refs = references(service._active.binarizer)
+        n_old = sum(a in old_refs for a in answers)
+        n_new = sum(a in new_refs for a in answers)
+        log(f"serving /reload under 8 clients: HTTP {status} in "
+            f"{reload_s:.3f} s; {len(answers)} answers, {n_old} of the old "
+            f"model, {n_new} of the new, {len(errors)} errors; reference "
+            f"sets old {len(old_refs)} new {len(new_refs)} overlap "
+            f"{len(old_refs & new_refs)}; new graphs "
+            f"{sorted(service._active.graphs)} pool "
+            f"{pool_bytes(service._active.pool)} B")
+        if status != 200 or errors or old_refs & new_refs or \
+                n_old + n_new != len(answers) or not n_old or not n_new:
+            raise AssertionError("reload under traffic: not old XOR new")
+
+        status, data, _ = http_post(f"{base}/binarize", b"not an image")
+        log(f"serving a body that is not an image: HTTP {status} "
+            f"{data.decode()}")
+        if status != 400:
+            raise AssertionError("a body that is not an image must be 400")
+        status, stats = http_get_json(f"{base}/stats")
+        log(f"serving /stats: {json.dumps(stats)}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        service.close()
+
+    torch.cuda.synchronize()
+    launches = dict(stats["kernel_launches"])
+    log(f"serving launches by graph replays (replays x launches per graph, "
+        f"counted by the service; the wrappers count once per capture): "
+        f"{json.dumps(launches)} in {stats['graph_replays']} replays; "
+        f"wrapper counts over the phase (eager first passes, captures, the "
+        f"comparisons) {json.dumps({k: f.launches for k, f in counters.items()})}")
+    for name in EXPRESS_KERNELS:
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"kernel {name} was not launched by a "
+                                 f"serving replay")
+
+    results["stage 01 host ms"] = stage01_host_paths(config)
+    ensure_backend()
+    log("ensure_backend(): ok")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = doctor.main(["doctor"])
+    for line in out.getvalue().splitlines():
+        if line.strip():
+            log(f"doctor: {line}")
+    log(f"doctor exit code {code}")
+    for name in ("device backend", "CUDA kernels", "native C++ kernels"):
+        if f"[PASS] {name}" not in out.getvalue():
+            raise AssertionError(f"doctor: {name} did not pass")
+    return launches, {"buckets": by_bucket, "http": results}
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "lecturemath_tpu_torch")):
         print("chip_smoke.py: lecturemath_tpu_torch not found beside this "
@@ -1007,6 +1747,11 @@ def main():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    import importlib.util
+
+    log(f"OpenCV importable: {importlib.util.find_spec('cv2') is not None}, "
+        f"Pillow: {importlib.util.find_spec('PIL') is not None} (the port "
+        f"needs neither)")
     t0 = time.perf_counter()
     logs = cuda_build.build()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s (parallel nvcc, "
@@ -1038,6 +1783,8 @@ def main():
 
     launches = {}
     staged_launches = {}
+    serving_launches = {}
+    serving = {}
     summary = {}
     try:
         conf, _ = make_workspace()
@@ -1058,6 +1805,12 @@ def main():
         except Exception:  # noqa: BLE001 — report every phase, then fail
             traceback.print_exc()
             failures.append("staged path")
+        torch.cuda.empty_cache()
+        try:
+            serving_launches, serving = phase_serving(conf, counters)
+        except Exception:  # noqa: BLE001 — report every phase, then fail
+            traceback.print_exc()
+            failures.append("serving path")
     except Exception:  # noqa: BLE001 — report every phase, then fail
         traceback.print_exc()
         failures.append("workspace")
@@ -1065,14 +1818,31 @@ def main():
         shutil.rmtree(WORKSPACE, ignore_errors=True)
 
     # launches: the staged path's counts (it runs every kernel), with each
-    # path's own counts beside them
+    # path's own counts beside them; serving's are graph replays x the
+    # launches each graph counted at capture, and beside them the launches
+    # the profiler saw in one replay of each bucket's graph
     for key, name in (("K1", "threshold_pack"), ("K2", "conv_same_nhwc"),
                       ("K3", "cc_label")):
         if key in records:
             records[key]["launches"] = staged_launches.get(name, 0)
             records[key]["launches_by_path"] = {
                 "express": launches.get(name, 0),
-                "staged": staged_launches.get(name, 0)}
+                "staged": staged_launches.get(name, 0),
+                "serving": serving_launches.get(name, 0)}
+    for key in SERVING_KERNELS:
+        if key in records and serving:
+            device_us = {bucket: numbers["device_us"]
+                         for bucket, numbers in serving["buckets"].items()}
+            records[key]["serving_us_by_bucket"] = {
+                bucket: groups and groups[key]
+                for bucket, groups in device_us.items()}
+            records[key]["serving_launches_per_replay_by_bucket"] = {
+                bucket: groups and groups["launches"][key]
+                for bucket, groups in device_us.items()}
+    if serving:
+        log(f"serving: " + json.dumps({k: {m: round(v, 3) for m, v in r.items()
+                                           if isinstance(v, float)}
+                                       for k, r in serving["http"].items()}))
     log(f"express {summary.get('fps', 0):.2f} fps on {card}")
     log(card)
     log(json.dumps({"kernels": list(records.values())}))

@@ -35,8 +35,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..core.config import Config
-from ..ops.conv7 import conv_same_nhwc, conv_same_plain
+from ..ops.conv7 import conv_same_nhwc, conv_same_plain, n_tiles, pack_weights
 from ..ops.postprocess import pack_bits, threshold_pack, threshold_pack_plain
+from ..utils.image import rgb_to_yuv420
 
 __all__ = ["FCNConfig", "FCNLectureNet", "fold_batch_norms", "fold_model",
            "init_weights", "prepare_images", "pad_to_multiple",
@@ -86,6 +87,10 @@ def _conv_block(c_in: int, c_out: int, k: int, fold_bn: bool,
     if activation is not None:
         layers.append(activation)
     return nn.Sequential(*layers)
+
+
+def _forget_head_packs(module: "FCNLectureNet", _keys) -> None:
+    module._head_packs.clear()
 
 
 class FCNLectureNet(nn.Module):
@@ -140,28 +145,74 @@ class FCNLectureNet(nn.Module):
                                              fold_bn, None)
             self.conv_out = _conv_block(cfg.in_channels + p2, 1, pk, fold_bn,
                                         None)
+        # K2's packed head weights (``head_pack``), dropped when the weights
+        # are loaded anew or moved
+        self._head_packs: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self.register_load_state_dict_post_hook(_forget_head_packs)
+
+    def _apply(self, fn, *args, **kwargs):
+        # .to, .cuda, .half and the like make new weight tensors
+        self._head_packs = {}
+        return super()._apply(fn, *args, **kwargs)
 
     @property
     def dtype(self) -> torch.dtype:
         return self.mid_block[0].weight.dtype
 
-    def _head(self, block: nn.Sequential, x: torch.Tensor, gelu: bool,
+    def head_inputs(self) -> Dict[str, Tuple[int, int]]:
+        """Channels of the two inputs of each pixel_k head conv, as the
+        forward passes them to kernel K2 (0: a single input)."""
+        cfg = self.config
+        c, up1 = cfg.in_channels, cfg.up_filters[0]
+        p1, p2 = cfg.pixel_features
+        return {"conv_text_mask_out": (up1, 0), "conv_pixels_1": (c, up1),
+                "conv_pixels_2": (c, p1), "conv_out": (c, p2)}
+
+    def head_pack(self, name: str) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(``pack_weights`` of head ``name``'s weight, its bias in f32),
+        computed once and kept until ``load_state_dict`` or a move (``.to``)
+        replaces the weights."""
+        pack = self._head_packs.get(name)
+        if pack is None:
+            conv = getattr(self, name)[0]
+            c1, c2 = self.head_inputs()[name]
+            with torch.no_grad():
+                pack = (pack_weights(conv.weight, c1, c2,
+                                     n_tiles(conv.weight.shape[0])),
+                        conv.bias.detach().float().contiguous().clone())
+            self._head_packs[name] = pack
+        return pack
+
+    def pack_heads(self) -> None:
+        """Pack every head's weights for K2 now (the stage-01 binarizer
+        calls this once the model is on the card), so no forward launches
+        the packing kernels."""
+        if not self.reconstruction_mode:
+            for name in self.head_inputs():
+                self.head_pack(name)
+
+    def _head(self, name: str, x: torch.Tensor, gelu: bool,
               out_dtype: torch.dtype,
               x2: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """One pixel_k head conv through kernel K2 (its plain version with
+        """Head conv ``name`` through kernel K2 (its plain version with
         ``plain``) on ``x``, or on ``x`` and ``x2`` read as their channel
         concat without building it; bias and GELU fuse into the kernel once
-        BN is folded."""
-        conv, bn = block[0], block[1]
+        BN is folded. On the card K2 takes the head's cached packed
+        weights (``head_pack``)."""
+        conv, bn = getattr(self, name)[0], getattr(self, name)[1]
         folded = isinstance(bn, nn.Identity)
         conv_fn = conv_same_plain if self.plain else conv_same_nhwc
         x = x.contiguous(memory_format=torch.channels_last)
         if x2 is not None:
             x2 = x2.contiguous(memory_format=torch.channels_last)
+        bias, extra = conv.bias, {}
+        if not self.plain and x.device.type == "cuda":
+            packed, bias = self.head_pack(name)
+            extra = {"packed": packed}
         if folded:
-            return conv_fn(x, conv.weight, conv.bias,
-                           "gelu" if gelu else None, out_dtype, x2)
-        y = bn(conv_fn(x, conv.weight, conv.bias, None, x.dtype, x2))
+            return conv_fn(x, conv.weight, bias, "gelu" if gelu else None,
+                           out_dtype, x2, **extra)
+        y = bn(conv_fn(x, conv.weight, bias, None, x.dtype, x2, **extra))
         if gelu:
             y = F.gelu(y)
         return y.to(out_dtype)
@@ -205,7 +256,7 @@ class FCNLectureNet(nn.Module):
                 return rec
             raise ValueError("a reconstruction-mode model has no text head")
 
-        text_logits = self._head(self.conv_text_mask_out, x_up1, False,
+        text_logits = self._head("conv_text_mask_out", x_up1, False,
                                  torch.float32)
         diff = (x0.to(dt) - rec) * torch.sigmoid(text_logits).to(dt)
         if mode == "diff":
@@ -214,9 +265,9 @@ class FCNLectureNet(nn.Module):
         # channels_last once: the three heads each read diff beside a
         # feature map
         diff = diff.contiguous(memory_format=torch.channels_last)
-        h = self._head(self.conv_pixels_1, diff, True, dt, x_up1)
-        h = self._head(self.conv_pixels_2, diff, True, dt, h)
-        bin_logits = self._head(self.conv_out, diff, False, torch.float32, h)
+        h = self._head("conv_pixels_1", diff, True, dt, x_up1)
+        h = self._head("conv_pixels_2", diff, True, dt, h)
+        bin_logits = self._head("conv_out", diff, False, torch.float32, h)
         return bin_logits, text_logits, rec
 
 
@@ -365,15 +416,14 @@ def yuv420_to_rgb(planes: torch.Tensor) -> torch.Tensor:
 
 
 def rgb_to_yuv420_host(frames: np.ndarray) -> np.ndarray:
-    """uint8 RGB [B, H, W, 3] -> uint8 I420 planes [B, H*3/2, W] (host,
-    cv2). H and W must be even."""
-    import cv2
-
+    """uint8 RGB [B, H, W, 3] -> uint8 I420 planes [B, H*3/2, W] (host;
+    equal to cv2.cvtColor(..., COLOR_RGB2YUV_I420)). H and W must be
+    even."""
     frames = np.asarray(frames)
     out = np.empty((frames.shape[0], frames.shape[1] * 3 // 2,
                     frames.shape[2]), np.uint8)
     for k in range(frames.shape[0]):
-        out[k] = cv2.cvtColor(frames[k], cv2.COLOR_RGB2YUV_I420)
+        out[k] = rgb_to_yuv420(frames[k])
     return out
 
 

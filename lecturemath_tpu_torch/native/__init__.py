@@ -10,6 +10,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -20,20 +21,31 @@ _LIB_PATH = os.path.join(_THIS_DIR, "liblecturemath_native.so")
 
 _lib: Optional[ctypes.CDLL] = None
 _load_failed = False
+_load_lock = threading.Lock()
 
 
 def build(force: bool = False) -> str:
-    """Compile the native library (g++ -O3); returns the .so path."""
+    """Compile the native library (g++ -O3); returns the .so path. The
+    library is written under a name of this process's own and then renamed
+    into place, so processes building at once never load a partial file."""
     if force or not os.path.exists(_LIB_PATH) or (
             os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SRC)):
+        partial = f"{_LIB_PATH}.{os.getpid()}.tmp"
         subprocess.run(
             ["g++", "-O3", "-march=native", "-shared", "-fPIC", _SRC,
-             "-o", _LIB_PATH], check=True)
+             "-o", partial], check=True)
+        os.replace(partial, _LIB_PATH)
     return _LIB_PATH
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
-    """Load (building if needed); returns None when unavailable."""
+    """Load (building if needed); returns None when unavailable. Safe to
+    call from several threads at once."""
+    with _load_lock:
+        return _load()
+
+
+def _load() -> Optional[ctypes.CDLL]:
     global _lib, _load_failed
     if _lib is not None or _load_failed:
         return _lib
@@ -59,6 +71,15 @@ def get_lib() -> Optional[ctypes.CDLL]:
     lib.render_masks.argtypes = [u8p, i64p, i32p, ctypes.c_int32, u8p,
                                  ctypes.c_int32, ctypes.c_int32]
     lib.render_masks.restype = None
+
+    lib.png_unfilter.argtypes = [u8p, ctypes.c_int32, ctypes.c_int32,
+                                 ctypes.c_int32, u8p]
+    lib.png_unfilter.restype = ctypes.c_int32
+
+    lib.resample_u8.argtypes = [u8p, ctypes.c_int64, ctypes.c_int32,
+                                ctypes.c_int64, i64p, i32p, ctypes.c_int32,
+                                ctypes.c_int32, ctypes.c_int32, u8p]
+    lib.resample_u8.restype = None
 
     _lib = lib
     return _lib
@@ -148,3 +169,41 @@ def render_masks(packed: PackedMasks, height: int, width: int) -> np.ndarray:
                      _ptr(packed.boxes, ctypes.c_int32), packed.n,
                      _ptr(frame, ctypes.c_uint8), height, width)
     return frame
+
+
+def png_unfilter(raw: np.ndarray, height: int, stride: int,
+                 bpp: int) -> Tuple[np.ndarray, int]:
+    """Undo the row filters of 8-bit PNG scanlines: ``raw`` is uint8
+    height x (1 + stride) bytes. Returns (uint8 [height, stride], the first
+    row of an unknown filter type or -1). The call releases the
+    interpreter lock."""
+    lib = get_lib()
+    assert lib is not None, "native library unavailable"
+    raw = np.ascontiguousarray(raw, dtype=np.uint8)
+    out = np.empty((height, stride), dtype=np.uint8)
+    bad = lib.png_unfilter(_ptr(raw, ctypes.c_uint8), height, stride, bpp,
+                           _ptr(out, ctypes.c_uint8))
+    return out, int(bad)
+
+
+def resample_u8(data: np.ndarray, axis: int, first: np.ndarray,
+                weights: np.ndarray, bits: int) -> np.ndarray:
+    """One pass of Pillow's fixed-point separable resample of uint8 ``data``
+    along ``axis``: output d is the int32 sum, from half a unit, of source
+    min(first[d] + k, n - 1) times weights[d, k] (``bits`` fractional bits),
+    rounded as Pillow's clip8. Releases the interpreter lock."""
+    lib = get_lib()
+    assert lib is not None, "native library unavailable"
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    first = np.ascontiguousarray(first, dtype=np.int64)
+    weights = np.ascontiguousarray(weights, dtype=np.int32)
+    dst_len, ksize = weights.shape
+    outer = int(np.prod(data.shape[:axis], dtype=np.int64))
+    inner = int(np.prod(data.shape[axis + 1:], dtype=np.int64))
+    out = np.empty(data.shape[:axis] + (dst_len,) + data.shape[axis + 1:],
+                   dtype=np.uint8)
+    lib.resample_u8(_ptr(data, ctypes.c_uint8), outer, data.shape[axis],
+                    inner, _ptr(first, ctypes.c_int64),
+                    _ptr(weights, ctypes.c_int32), ksize, dst_len, bits,
+                    _ptr(out, ctypes.c_uint8))
+    return out

@@ -10,9 +10,14 @@
 //   * batch_mask_overlap: matched-pixel counts for a list of candidate CC
 //     pairs over packed mask crops (the tracker / grouping hot loop)
 //   * render_masks: paint packed CC crops back onto a frame
+//   * png_unfilter: undo PNG row filters (Avg and Paeth are sequential
+//     along a row, so numpy cannot do them a row at a time)
+//   * resample_u8: one pass of Pillow's fixed-point separable resample
+//     (stage 01's LANCZOS halving above the pixel cap)
 //
 // Build: g++ -O3 -march=native -shared -fPIC lecturemath_native.cpp -o liblecturemath_native.so
 
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
 #include <vector>
@@ -198,6 +203,113 @@ void render_masks(const uint8_t* masks, const int64_t* offsets,
                 crop + static_cast<int64_t>(y - box[2]) * crop_w;
             for (int32_t x = 0; x < crop_w; ++x) {
                 row[x] = static_cast<uint8_t>(row[x] + crop_row[x]);
+            }
+        }
+    }
+}
+
+// Undo the row filters of 8-bit PNG scanlines (PNG spec, section 9.2):
+// `raw` holds `height` rows of one filter-type byte and `stride` bytes,
+// `bpp` bytes a pixel; `out` receives the height x stride pixel bytes.
+// Returns -1, or the first row whose filter type is unknown.
+int32_t png_unfilter(const uint8_t* raw, int32_t height, int32_t stride,
+                     int32_t bpp, uint8_t* out) {
+    std::vector<uint8_t> zeros(static_cast<size_t>(stride), 0);
+    for (int32_t y = 0; y < height; ++y) {
+        const uint8_t* line = raw + static_cast<int64_t>(y) * (stride + 1);
+        const uint8_t kind = *line++;
+        uint8_t* recon = out + static_cast<int64_t>(y) * stride;
+        const uint8_t* prior = y ? recon - stride : zeros.data();
+        switch (kind) {
+            case 0:
+                std::memcpy(recon, line, static_cast<size_t>(stride));
+                break;
+            case 1:
+                for (int32_t x = 0; x < stride; ++x)
+                    recon[x] = static_cast<uint8_t>(
+                        line[x] + (x >= bpp ? recon[x - bpp] : 0));
+                break;
+            case 2:
+                for (int32_t x = 0; x < stride; ++x)
+                    recon[x] = static_cast<uint8_t>(line[x] + prior[x]);
+                break;
+            case 3:
+                for (int32_t x = 0; x < stride; ++x) {
+                    const int left = x >= bpp ? recon[x - bpp] : 0;
+                    recon[x] = static_cast<uint8_t>(
+                        line[x] + ((left + prior[x]) >> 1));
+                }
+                break;
+            case 4:
+                for (int32_t x = 0; x < stride; ++x) {
+                    const int left = x >= bpp ? recon[x - bpp] : 0;
+                    const int up = prior[x];
+                    const int up_left = x >= bpp ? prior[x - bpp] : 0;
+                    const int p = left + up - up_left;
+                    const int pa = p > left ? p - left : left - p;
+                    const int pb = p > up ? p - up : up - p;
+                    const int pc = p > up_left ? p - up_left : up_left - p;
+                    const int pred = (pa <= pb && pa <= pc) ? left
+                                     : (pb <= pc ? up : up_left);
+                    recon[x] = static_cast<uint8_t>(line[x] + pred);
+                }
+                break;
+            default:
+                return y;
+        }
+    }
+    return -1;
+}
+
+// One pass of Pillow's separable 8-bit resample (ImagingResampleHorizontal
+// / Vertical_8bpc) along the middle axis of `src` [outer, src_len, inner]
+// into `out` [outer, dst_len, inner]: output d sums taps k < ksize of
+// source min(first[d] + k, src_len - 1) times weights[d * ksize + k]
+// (fixed point, `bits` fractional bits; unused taps weigh 0) in int32 from
+// half a unit, and rounds as Pillow's clip8.
+void resample_u8(const uint8_t* src, int64_t outer, int32_t src_len,
+                 int64_t inner, const int64_t* first, const int32_t* weights,
+                 int32_t ksize, int32_t dst_len, int32_t bits, uint8_t* out) {
+    if (inner <= 4) {
+        // pixels of a row (the horizontal pass): taps outermost per value
+        for (int64_t o = 0; o < outer; ++o) {
+            const uint8_t* plane = src + o * src_len * inner;
+            uint8_t* dst = out + o * dst_len * inner;
+            for (int32_t d = 0; d < dst_len; ++d) {
+                const int32_t* w = weights + static_cast<int64_t>(d) * ksize;
+                for (int64_t i = 0; i < inner; ++i) {
+                    int32_t acc = 1 << (bits - 1);
+                    for (int32_t k = 0; k < ksize; ++k) {
+                        int64_t s = first[d] + k;
+                        if (s > src_len - 1) s = src_len - 1;
+                        acc += plane[s * inner + i] * w[k];
+                    }
+                    const int32_t v = acc >> bits;
+                    dst[d * inner + i] =
+                        static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
+                }
+            }
+        }
+        return;
+    }
+    // whole rows (the vertical pass): one accumulator row, vectorised
+    std::vector<int32_t> acc(static_cast<size_t>(inner));
+    for (int64_t o = 0; o < outer; ++o) {
+        const uint8_t* plane = src + o * src_len * inner;
+        for (int32_t d = 0; d < dst_len; ++d) {
+            std::fill(acc.begin(), acc.end(), 1 << (bits - 1));
+            for (int32_t k = 0; k < ksize; ++k) {
+                const int32_t w = weights[static_cast<int64_t>(d) * ksize + k];
+                if (w == 0) continue;
+                int64_t s = first[d] + k;
+                if (s > src_len - 1) s = src_len - 1;
+                const uint8_t* row = plane + s * inner;
+                for (int64_t i = 0; i < inner; ++i) acc[i] += row[i] * w;
+            }
+            uint8_t* dst = out + (o * dst_len + d) * inner;
+            for (int64_t i = 0; i < inner; ++i) {
+                const int32_t v = acc[i] >> bits;
+                dst[i] = static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
             }
         }
     }

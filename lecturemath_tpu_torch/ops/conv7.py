@@ -91,7 +91,8 @@ def conv_same_nhwc(x: torch.Tensor, weight: torch.Tensor,
                    bias: Optional[torch.Tensor] = None,
                    activation: Optional[str] = None,
                    out_dtype: Optional[torch.dtype] = None,
-                   x2: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   x2: Optional[torch.Tensor] = None,
+                   packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """k x k SAME stride-1 conv + bias + optional exact GELU.
 
     ``x`` is a (B, C, H, W) tensor; on the card it must be bf16 in
@@ -101,8 +102,10 @@ def conv_same_nhwc(x: torch.Tensor, weight: torch.Tensor,
     (N, C + C2, k, k) as for ``F.conv2d`` (k odd, at most 7; the kernel
     computes with it rounded to bf16), ``bias`` (N,) or None. Returns
     (B, N, H, W) in ``channels_last`` memory, of ``out_dtype`` (bf16 or
-    f32; default the input's dtype). One kernel launch for a CUDA tensor;
-    the plain version for a CPU tensor."""
+    f32; default the input's dtype). ``packed``, when given, is
+    ``pack_weights`` of ``weight`` computed beforehand (the model caches
+    it per head), so the call launches no packing kernels. One kernel
+    launch for a CUDA tensor; the plain version for a CPU tensor."""
     device = x.device
     if device.type == "cpu":
         return conv_same_plain(x, weight, bias, activation, out_dtype, x2)
@@ -145,7 +148,11 @@ def conv_same_nhwc(x: torch.Tensor, weight: torch.Tensor,
                          "the input's device")
 
     nt = n_tiles(n_out)
-    packed = pack_weights(weight, c_in, c2, nt)
+    if packed is None:
+        packed = pack_weights(weight, c_in, c2, nt)
+    elif packed.dtype != torch.bfloat16 or packed.device != device:
+        raise ValueError(f"conv_same_nhwc: packed weights {packed.dtype} on "
+                         f"{packed.device}, expected bf16 on {device}")
     b = (torch.zeros(n_out, dtype=torch.float32, device=device)
          if bias is None else bias.detach().float().contiguous())
     out = torch.empty((batch, n_out, height, width), dtype=out_dtype,

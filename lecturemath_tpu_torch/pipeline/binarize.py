@@ -14,18 +14,21 @@ sees foreground ink as nonzero.
 
 from __future__ import annotations
 
+import os
 import queue
 from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..core.backend_probe import BackendUnavailable, call_with_deadline
 from ..core.config import Config
 from ..core.device import resolve_device
 from ..models.convert import load_checkpoint
 from ..models.fcn_lecturenet import (FCNConfig, FCNLectureNet, fold_model,
                                      init_weights, make_binarizer,
                                      make_packed_binarizer, unpack_bits_host)
+from ..utils.image import halve_lanczos, resize_area, resize_nearest
 from .video import VideoFrameSource
 
 MAX_BATCH = 96
@@ -63,6 +66,27 @@ def default_batch_size(width: int, height: int, device: torch.device,
     if batch >= 8:
         batch -= batch % 8
     return batch
+
+
+def _start_host_copy(tensor: torch.Tensor):
+    """Queue a copy of ``tensor`` into new pinned host memory on the current
+    stream; returns (host tensor, CUDA event recorded after the copy). A
+    CPU tensor is its own host copy (event None)."""
+    if tensor.device.type != "cuda":
+        return tensor, None
+    host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+    host.copy_(tensor, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(tensor.device))
+    return host, done
+
+
+def _wait_host_copy(host: torch.Tensor, done) -> np.ndarray:
+    """Block until the copy of ``_start_host_copy`` has landed (the event
+    wait releases the GIL); returns it as a numpy array."""
+    if done is not None:
+        done.synchronize()
+    return host.numpy()
 
 
 class _HostCopies:
@@ -276,6 +300,8 @@ class Binarizer:
             model = fold_model(model)
         model = model.to(device=self.device, dtype=dtype or model.dtype,
                          memory_format=torch.channels_last).eval()
+        if self.device.type == "cuda" and not model.plain:
+            model.pack_heads()  # K2's packed weights, once per model
         self.model = model
         self.mesh = None
         self.batch_size = batch_size
@@ -320,8 +346,6 @@ class Binarizer:
         (a torch ``.dat``/``.pth`` state dict, or a JAX-package ``.msgpack``).
         With ``allow_random`` and no checkpoint, the weights are a random
         init from ``torch.Generator().manual_seed(seed)``."""
-        import os
-
         device = resolve_device(device)
         net_config = FCNConfig.from_config(config)
         model = FCNLectureNet(net_config)
@@ -363,11 +387,32 @@ class Binarizer:
     def _to_device(self, frames: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
 
+    def _fetch(self, tensor: torch.Tensor) -> np.ndarray:
+        """Bounded device -> host copy. On the card the copy is queued into
+        pinned memory behind a CUDA event, and a daemon thread waits on the
+        event with a deadline (LM_FETCH_TIMEOUT_S, default 900 s; <= 0
+        waits without one): a card that stops answering mid-run raises an
+        actionable error instead of stalling the caller. On the CPU the
+        tensor is the host copy."""
+        timeout_s = float(os.environ.get("LM_FETCH_TIMEOUT_S", "900"))
+        host, done = _start_host_copy(tensor)
+        if timeout_s <= 0:
+            return _wait_host_copy(host, done)
+        try:
+            return call_with_deadline(lambda: _wait_host_copy(host, done),
+                                      timeout_s, "device fetch")
+        except BackendUnavailable:
+            raise BackendUnavailable(
+                f"device fetch hung for {timeout_s:.0f} s (backend died "
+                f"mid-run?) — re-run this stage when the backend recovers, "
+                f"or set LM_FETCH_TIMEOUT_S to adjust/disable this "
+                f"deadline") from None
+
     def binarize_frames(self, frames: np.ndarray) -> np.ndarray:
         """uint8 RGB [B, H, W, 3] -> uint8 binary [B, H, W] in the raw model
         polarity (a trained model emits ink=0 on a 255 background)."""
         binary, _, _ = self._binarize_fn(self._to_device(frames))
-        return binary.cpu().numpy()
+        return self._fetch(binary)
 
     def stream_source(self, source: VideoFrameSource, frames_limit: int = 0,
                       invert: bool = True):
@@ -403,9 +448,7 @@ class Binarizer:
             for offset in range(batch.valid):
                 img = host[offset]
                 if model_size != full_size:
-                    import cv2
-                    img = cv2.resize(img, full_size,
-                                     interpolation=cv2.INTER_NEAREST)
+                    img = resize_nearest(img, full_size)
                 if invert:
                     img = 255 - img
                 frames.append(img)
@@ -549,26 +592,18 @@ def _downscale_batch(frames: np.ndarray, model_size: Tuple[int, int],
                      filter: str = "lanczos") -> np.ndarray:
     """Iterative halving on host. ``filter='lanczos'`` matches the
     reference's PIL resize (FCN_lecturenet.py:436 uses PIL.Image.LANCZOS);
-    'area' uses cv2 INTER_AREA (box mean) — pixel values differ slightly
-    near edges."""
-    import cv2
-    from PIL import Image
-
+    'area' matches cv2 INTER_AREA (box mean) — pixel values differ slightly
+    near edges. Both are numpy (``utils/image.py``), equal to those calls."""
+    halve = (halve_lanczos if filter == "lanczos" else
+             lambda img: resize_area(img, (img.shape[1] // 2,
+                                           img.shape[0] // 2)))
     out = np.empty((frames.shape[0], model_size[1], model_size[0], 3), np.uint8)
     for k in range(frames.shape[0]):
-        if filter == "area":
-            img = frames[k]
-            while img.shape[0] * img.shape[1] > model_size[0] * model_size[1]:
-                img = cv2.resize(img, (img.shape[1] // 2, img.shape[0] // 2),
-                                 interpolation=cv2.INTER_AREA)
-            out[k] = img
-            continue
-        img = Image.fromarray(frames[k])
+        img = frames[k]
         # halve until the pixel count reaches the target's — model_size
         # (from resolve_model_size) is the single source of the halving
         # rule, so the two can't drift apart
-        while img.size[0] * img.size[1] > model_size[0] * model_size[1]:
-            img = img.resize((img.size[0] // 2, img.size[1] // 2),
-                             Image.LANCZOS)
-        out[k] = np.asarray(img)
+        while img.shape[0] * img.shape[1] > model_size[0] * model_size[1]:
+            img = halve(img)
+        out[k] = img
     return out

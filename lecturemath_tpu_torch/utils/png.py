@@ -10,7 +10,13 @@ writes level-flag 0 in the stream header whatever the level.)
 
 ``decode_png_gray`` reads 8-bit grayscale, non-interlaced PNGs with any of
 the five row filters (another writer's artifact may use Avg or Paeth) and
-raises ``PNGFormatError`` on anything else.
+raises ``PNGFormatError`` on anything else. ``decode_png`` also reads RGB
+and RGBA (the serving surface's request bodies), dropping alpha. Images
+whose rows are all filtered Sub (what this encoder and OpenCV write) are
+undone in numpy; any other mix of filters (libpng's and Pillow's adaptive
+filtering choose Avg and Paeth for many rows) goes to the native library's
+``png_unfilter``, which releases the interpreter lock, and to a Python loop
+only where that library cannot be built.
 """
 
 from __future__ import annotations
@@ -21,15 +27,22 @@ from typing import Union
 
 import numpy as np
 
+from .. import native
+
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 IDAT_CHUNK = 8192
 _COLOR_TYPES = {1: 0, 3: 2}  # channels -> PNG colour type (gray, RGB)
+_CHANNELS = {0: 1, 2: 3, 6: 4}  # colour type -> bytes a pixel (8-bit)
 # libpng's default zlib memLevel
 _MEM_LEVEL = 8
+# the decoders' largest image, OpenCV's default (CV_IO_MAX_IMAGE_PIXELS)
+MAX_PIXELS = 1 << 30
+# deflate's largest expansion: 258 bytes from about 2 bits, plus slack
+_DEFLATE_RATIO = 1100
 
 
 class PNGFormatError(ValueError):
-    """A buffer that is not an 8-bit grayscale, non-interlaced PNG."""
+    """A buffer that is not a PNG of a kind the decoders take."""
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -115,50 +128,71 @@ def encode_png(img: np.ndarray) -> bytes:
     return b"".join(parts)
 
 
-def _unfilter(raw: np.ndarray, height: int, width: int) -> np.ndarray:
-    """Undo the per-row filters of 8-bit gray scanlines (1 byte a pixel)."""
-    rows = raw.reshape(height, width + 1)
+def _unfilter(raw: np.ndarray, height: int, width: int,
+              bpp: int = 1) -> np.ndarray:
+    """Undo the per-row filters of 8-bit scanlines of ``bpp`` bytes a pixel;
+    returns the rows as uint8 [height, width * bpp]."""
+    stride = width * bpp
+    rows = raw.reshape(height, stride + 1)
     kinds = rows[:, 0]
     if (kinds == 1).all():  # what OpenCV writes: one cumsum for all rows
-        return np.cumsum(rows[:, 1:], axis=1, dtype=np.uint8)
-    out = np.empty((height, width), np.uint8)
-    prior = np.zeros(width, np.uint8)
+        return np.cumsum(rows[:, 1:].reshape(height, width, bpp), axis=1,
+                         dtype=np.uint8).reshape(height, stride)
+    if native.available():
+        out, bad = native.png_unfilter(rows, height, stride, bpp)
+        if bad >= 0:
+            raise PNGFormatError(f"row {bad}: unknown PNG filter type "
+                                 f"{int(kinds[bad])}")
+        return out
+    return _unfilter_rows(rows, height, width, bpp)
+
+
+def _unfilter_rows(rows: np.ndarray, height: int, width: int,
+                   bpp: int) -> np.ndarray:
+    """``_unfilter`` a row at a time in Python and numpy, where the native
+    library is unavailable: None, Sub and Up vectorised, Avg and Paeth a
+    byte at a time (slow on large images)."""
+    stride = width * bpp
+    out = np.empty((height, stride), np.uint8)
+    prior = np.zeros(stride, np.uint8)
     for y in range(height):
         kind = int(rows[y, 0])
         line = rows[y, 1:]
         if kind == 0:
             out[y] = line
         elif kind == 1:
-            np.cumsum(line, dtype=np.uint8, out=out[y])
+            np.cumsum(line.reshape(width, bpp), axis=0, dtype=np.uint8,
+                      out=out[y].reshape(width, bpp))
         elif kind == 2:
             np.add(line, prior, out=out[y])
         elif kind == 3:
-            left = 0
             recon = out[y]
-            for x in range(width):
-                left = (int(line[x]) + ((left + int(prior[x])) >> 1)) & 0xFF
-                recon[x] = left
+            for x in range(stride):
+                left = int(recon[x - bpp]) if x >= bpp else 0
+                recon[x] = (int(line[x]) + ((left + int(prior[x])) >> 1)) \
+                    & 0xFF
         elif kind == 4:
-            left = up_left = 0
             recon = out[y]
-            for x in range(width):
+            for x in range(stride):
                 up = int(prior[x])
+                if x >= bpp:
+                    left, up_left = int(recon[x - bpp]), int(prior[x - bpp])
+                else:
+                    left = up_left = 0
                 p = left + up - up_left
                 pa, pb, pc = abs(p - left), abs(p - up), abs(p - up_left)
                 pred = (left if pa <= pb and pa <= pc
                         else up if pb <= pc else up_left)
-                left = (int(line[x]) + pred) & 0xFF
-                recon[x] = left
-                up_left = up
+                recon[x] = (int(line[x]) + pred) & 0xFF
         else:
             raise PNGFormatError(f"row {y}: unknown PNG filter type {kind}")
         prior = out[y]
     return out
 
 
-def decode_png_gray(buf: Union[bytes, bytearray, memoryview, np.ndarray]
-                    ) -> np.ndarray:
-    """Decode an 8-bit grayscale, non-interlaced PNG into uint8 [H, W]."""
+def _read_chunks(buf: Union[bytes, bytearray, memoryview, np.ndarray]):
+    """(IHDR fields, concatenated IDAT bytes) of a PNG buffer, CRCs
+    checked."""
     data = (np.ascontiguousarray(buf, dtype=np.uint8).tobytes()
             if isinstance(buf, np.ndarray) else bytes(buf))
     if not data.startswith(SIGNATURE):
@@ -185,24 +219,65 @@ def decode_png_gray(buf: Union[bytes, bytearray, memoryview, np.ndarray]
             idat.append(body)
         elif kind == b"IEND":
             break
+        elif kind == b"PLTE":
+            # a palette image is refused by its colour type; in RGB and
+            # RGBA images PLTE is only a suggested palette
+            continue
         elif kind[:1].isupper():
             raise PNGFormatError(f"unsupported critical PNG chunk {kind!r}")
     if header is None:
         raise PNGFormatError("PNG has no IHDR chunk")
+    return header, b"".join(idat)
+
+
+def _decode(buf, color_types) -> np.ndarray:
+    """Rows of an 8-bit, non-interlaced PNG of one of ``color_types`` as
+    uint8 [H, W, channels]."""
+    header, idat = _read_chunks(buf)
     width, height, depth, color, compression, filter_method, interlace = header
-    if (depth, color) != (8, 0):
-        raise PNGFormatError(f"only 8-bit grayscale PNGs are supported (bit "
-                             f"depth {depth}, colour type {color})")
+    if depth != 8 or color not in color_types:
+        raise PNGFormatError(
+            f"only 8-bit {' / '.join(color_types.values())} PNGs are "
+            f"supported (bit depth {depth}, colour type {color})")
     if compression or filter_method or interlace:
         raise PNGFormatError("only non-interlaced PNGs with the standard "
                              "compression and filter methods are supported")
     if width == 0 or height == 0:
         raise PNGFormatError("PNG has an empty image")
+    bpp = _CHANNELS[color]
+    expected = height * (width * bpp + 1)
+    if width * height > MAX_PIXELS or expected > _DEFLATE_RATIO * len(idat):
+        # a header no image data of this size can fill: refused before any
+        # buffer is allocated for it
+        raise PNGFormatError(f"PNG of {width}x{height} pixels: larger than "
+                             f"{MAX_PIXELS} pixels or than its "
+                             f"{len(idat)} bytes of image data can hold")
     try:
-        raw = zlib.decompress(b"".join(idat))
+        # one output buffer of the known size: growing it step by step
+        # takes the interpreter lock between steps, which serialises
+        # concurrent decodes (the server decodes on one thread a request)
+        raw = zlib.decompress(idat, bufsize=expected)
     except zlib.error as exc:
         raise PNGFormatError(f"corrupt PNG image data: {exc}") from None
-    if len(raw) != height * (width + 1):
+    if len(raw) != expected:
         raise PNGFormatError(f"PNG image data holds {len(raw)} bytes, "
-                             f"expected {height * (width + 1)}")
-    return _unfilter(np.frombuffer(raw, np.uint8), height, width)
+                             f"expected {expected}")
+    rows = _unfilter(np.frombuffer(raw, np.uint8), height, width, bpp)
+    return rows.reshape(height, width, bpp)
+
+
+def decode_png_gray(buf: Union[bytes, bytearray, memoryview, np.ndarray]
+                    ) -> np.ndarray:
+    """Decode an 8-bit grayscale, non-interlaced PNG into uint8 [H, W]."""
+    return _decode(buf, {0: "grayscale"})[:, :, 0]
+
+
+def decode_png(buf: Union[bytes, bytearray, memoryview, np.ndarray]
+               ) -> np.ndarray:
+    """Decode an 8-bit, non-interlaced grayscale, RGB or RGBA PNG (colour
+    types 0, 2, 6) into uint8 gray [H, W] or RGB [H, W, 3]; alpha is
+    dropped. Raises ``PNGFormatError`` on anything else."""
+    pixels = _decode(buf, {0: "grayscale", 2: "RGB", 6: "RGBA"})
+    if pixels.shape[2] == 1:
+        return pixels[:, :, 0]
+    return np.ascontiguousarray(pixels[:, :, :3])

@@ -376,3 +376,155 @@ def test_cc_label_refuses_what_the_kernel_does_not_take(cuda):
         label_components_batch(binary.transpose(1, 2))
     with pytest.raises(ValueError, match=r"\[H, W\]"):
         label_components(binary)
+
+
+# --- K2 with the model's cached packed weights, and the serving path: one
+# CUDA graph per batch bucket holding K2's four launches and K1's one
+
+def test_conv_same_nhwc_takes_cached_packed_weights(cuda):
+    from lecturemath_tpu_torch.ops.conv7 import n_tiles, pack_weights
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = _bf16_nhwc((2, 3, 40, 56), gen, cuda)
+    x2 = _bf16_nhwc((2, 16, 40, 56), gen, cuda)
+    weight = (torch.randn(8, 19, 7, 7, device=cuda, generator=gen)
+              * 0.05).to(torch.bfloat16)
+    bias = torch.randn(8, device=cuda, generator=gen)
+    packed = pack_weights(weight, 3, 16, n_tiles(8))
+    got = conv_same_nhwc(x, weight, bias, "gelu", torch.float32, x2,
+                         packed=packed)
+    ref = conv_same_nhwc(x, weight, bias, "gelu", torch.float32, x2)
+    assert torch.equal(got, ref)
+    with pytest.raises(ValueError, match="packed weights"):
+        conv_same_nhwc(x, weight, bias, "gelu", torch.float32, x2,
+                       packed=packed.float())
+
+
+def _serving_binarizer(cuda, threshold_gray=130.0):
+    from lecturemath_tpu_torch.models.fcn_lecturenet import (FCNConfig,
+                                                             FCNLectureNet)
+    from lecturemath_tpu_torch.pipeline.binarize import Binarizer
+    from lecturemath_tpu_torch.utils.synthetic import \
+        threshold_binarizer_variables
+
+    cfg = FCNConfig(down_filters=(8, 8, 16, 16, 32), mid_filters=32,
+                    upsample_filters=(8, 8, 16, 16, 32),
+                    up_filters=(8, 8, 16, 16, 32), pixel_features=(32, 16),
+                    kernel_size=3, pixel_kernel_size=7)
+    model = FCNLectureNet(cfg)
+    model.load_state_dict(threshold_binarizer_variables(
+        cfg, threshold_gray=threshold_gray))
+    return Binarizer(model, device=cuda, dtype=torch.bfloat16,
+                     upload_format="rgb")
+
+
+def _serving_frames(n, height=64, width=96, seed=0):
+    rng = np.random.default_rng(seed)
+    frames = np.clip(rng.normal(215, 10, (n, height, width, 3)), 0,
+                     255).astype(np.uint8)
+    for k in range(n):
+        y, x = rng.integers(0, height - 12), rng.integers(0, width - 30)
+        frames[k, y:y + 10, x:x + 28] = 25
+    return frames
+
+
+def test_serving_graph_equals_eager_for_every_bucket(cuda):
+    from lecturemath_tpu_torch.pipeline.server import BinarizeService
+
+    service = BinarizeService(_serving_binarizer(cuda), model_size=(96, 64),
+                              max_batch=4, batch_window_ms=1.0)
+    try:
+        active = service._active
+        assert active.graphs_enabled
+        assert sorted(active.graphs) == service.batch_buckets == [1, 2, 4]
+        frames = _serving_frames(4)
+        for bucket, graph in active.graphs.items():
+            # K2's four head convs and K1 in every graph
+            assert graph.launches == {"threshold_pack": 1,
+                                      "conv_same_nhwc": 4}
+            with active.stream_context():
+                ours = graph.run(frames[:bucket]).clone()
+            eager = active.binarizer._packed_fn(
+                torch.from_numpy(frames[:bucket]).to(cuda))
+            torch.cuda.synchronize()
+            assert torch.equal(ours, eager), bucket
+    finally:
+        service.close()
+
+
+def test_serving_round_trip_on_the_card(cuda):
+    """binarize_rgb from several threads at several sizes: each answer
+    equals a direct binarization of its frame (a lone request rides bucket
+    1), and the replays are counted."""
+    import threading
+
+    from lecturemath_tpu_torch.models.fcn_lecturenet import unpack_bits_host
+    from lecturemath_tpu_torch.pipeline.server import BinarizeService
+    from lecturemath_tpu_torch.utils.image import resize_area, resize_nearest
+
+    service = BinarizeService(_serving_binarizer(cuda), model_size=(96, 64),
+                              max_batch=4, batch_window_ms=1.0)
+    binarizer = service._active.binarizer
+
+    def direct(frame):
+        resized = resize_area(frame, (96, 64))
+        bits = binarizer._packed_fn(torch.from_numpy(resized[None]).to(cuda))
+        binary = unpack_bits_host(bits.cpu().numpy(), 96)[0]
+        return resize_nearest(binary, (frame.shape[1], frame.shape[0]))
+
+    try:
+        for height, width in ((64, 96), (128, 192), (80, 120), (40, 60)):
+            frame = _serving_frames(1, height, width, seed=height)[0]
+            np.testing.assert_array_equal(service.binarize_rgb(frame),
+                                          direct(frame))
+        results = []
+        threads = [threading.Thread(target=lambda k=k: results.append(
+            service.binarize_rgb(_serving_frames(1, seed=k)[0])))
+            for k in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+        assert len(results) == 8
+        stats = service.stats()
+        assert stats["graph_replays"] > 0
+        assert stats["kernel_launches"]["conv_same_nhwc"] == \
+            4 * stats["graph_replays"]
+        assert stats["kernel_launches"]["threshold_pack"] == \
+            stats["graph_replays"]
+    finally:
+        service.close()
+
+
+def test_serving_reload_with_graphs(cuda, tmp_path):
+    from lecturemath_tpu_torch.pipeline.server import BinarizeService
+
+    def factory(checkpoint=None):
+        return _serving_binarizer(cuda, 130.0 if checkpoint is None else 5.0)
+
+    service = BinarizeService(factory(), model_size=(96, 64), max_batch=2,
+                              batch_window_ms=1.0,
+                              binarizer_factory=factory)
+    try:
+        frame = _serving_frames(1)[0]
+        before = service.binarize_rgb(frame)
+        assert (before == 0).any()
+        old_pool = service._active.pool
+        service.reload_checkpoint("blind")
+        assert service._active.pool != old_pool
+        assert sorted(service._active.graphs) == [1, 2]
+        after = service.binarize_rgb(frame)
+        assert (after == 255).all()
+    finally:
+        service.close()
+
+
+def test_backend_probe_and_bounded_fetch_on_the_card(cuda):
+    from lecturemath_tpu_torch.core.backend_probe import ensure_backend
+
+    ensure_backend(timeout_s=60)
+    binarizer = _serving_binarizer(cuda)
+    tensor = torch.arange(12, dtype=torch.uint8, device=cuda).reshape(3, 4)
+    np.testing.assert_array_equal(binarizer._fetch(tensor),
+                                  np.arange(12, dtype=np.uint8).reshape(3, 4))

@@ -124,6 +124,22 @@ def test_staged_slice_modules_are_checked(module):
     assert module in [_module_name(p) for p in _port_files()]
 
 
+SERVING_MODULES = [
+    "lecturemath_tpu_torch.core.backend_probe",
+    "lecturemath_tpu_torch.utils.image",
+    "lecturemath_tpu_torch.pipeline.server",
+    *[f"lecturemath_tpu_torch.cli.{name}" for name in (
+        "serve", "binarize_image", "doctor")],
+]
+
+
+@pytest.mark.parametrize("module", SERVING_MODULES)
+def test_serving_slice_modules_are_checked(module):
+    """The serving surface, its companion CLIs, the probe and the image
+    operations are among the files the checks above walk."""
+    assert module in [_module_name(p) for p in _port_files()]
+
+
 _NO_OPENCV = r"""
 import os, sys
 BANNED = ("cv2", "PIL")
@@ -164,3 +180,44 @@ def test_png_relay_and_export_need_no_opencv(tmp_path):
     assert result.returncode == 0, result.stderr[-3000:]
     assert "relay ok" in result.stdout
     assert (tmp_path / "summary" / "keyframes" / "2.png").exists()
+
+
+_SERVING_NO_OPENCV = r"""
+import sys
+for name in ("cv2", "PIL", "PIL.Image"):
+    sys.modules[name] = None
+sys.path.insert(0, %r)
+import numpy as np
+import torch
+from lecturemath_tpu_torch.models.fcn_lecturenet import FCNConfig, FCNLectureNet
+from lecturemath_tpu_torch.pipeline.binarize import Binarizer
+from lecturemath_tpu_torch.pipeline.server import BinarizeService, decode_image
+from lecturemath_tpu_torch.utils.png import decode_png_gray, encode_png
+from lecturemath_tpu_torch.utils.synthetic import threshold_binarizer_variables
+cfg = FCNConfig(down_filters=(2, 3, 4, 5, 6), mid_filters=6,
+                upsample_filters=(2, 3, 4, 5, 6), up_filters=(2, 3, 4, 5, 6),
+                pixel_features=(3, 2), kernel_size=3, pixel_kernel_size=3)
+model = FCNLectureNet(cfg)
+model.load_state_dict(threshold_binarizer_variables(cfg))
+service = BinarizeService(Binarizer(model, device="cpu", upload_format="yuv420"),
+                          model_size=(64, 48), max_batch=2)
+frame = np.full((96, 130, 3), 220, np.uint8)
+frame[20:40, 24:60] = 20
+for size in ((96, 130), (48, 64), (60, 80), (30, 40)):
+    rgb = decode_image(encode_png(frame[:size[0], :size[1], ::-1]))
+    binary = decode_png_gray(encode_png(service.binarize_rgb(rgb)))
+    assert binary.shape == size and (binary == 0).any()
+service.close()
+print("serving ok")
+"""
+
+
+def test_serving_path_needs_no_opencv():
+    """Request decode, area resize to the bucket (2x, fractional and up),
+    I420 upload, nearest resize back and answer encode run with cv2 and PIL
+    unimportable, as on a machine that has neither."""
+    result = subprocess.run(
+        [sys.executable, "-c", _SERVING_NO_OPENCV % REPO], cwd=REPO,
+        capture_output=True, text=True, timeout=120)
+    assert result.returncode == 0, result.stderr[-3000:]
+    assert "serving ok" in result.stdout

@@ -220,3 +220,44 @@ def test_pack_bits_equal(width):
     np.testing.assert_array_equal(ours, theirs)
     np.testing.assert_array_equal(
         tfcn.unpack_bits_host(ours, width), (binary * 255).astype(np.uint8))
+
+
+@pytest.mark.parametrize("folded", [False, True])
+def test_cached_head_packs_follow_the_weights(folded):
+    """K2's packed weights are cached per head (``head_pack``) and are
+    ``pack_weights`` of the CURRENT weights: after load_state_dict (an
+    in-place copy) and after .to (new tensors); a repeat call returns the
+    same cached tensors."""
+    from lecturemath_tpu_torch.ops.conv7 import n_tiles, pack_weights
+
+    cfg = tfcn.FCNConfig(**TINY_K7)
+    model = tfcn.FCNLectureNet(cfg, fold_bn=folded)
+    rng = np.random.default_rng(11)
+
+    def randomize():
+        model.load_state_dict({
+            key: torch.from_numpy(rng.normal(0, 1, tuple(value.shape)).astype(
+                np.float32)) if value.is_floating_point() else value
+            for key, value in model.state_dict().items()})
+
+    def check():
+        for name, (c1, c2) in model.head_inputs().items():
+            conv = getattr(model, name)[0]
+            packed, bias = model.head_pack(name)
+            expected = pack_weights(conv.weight, c1, c2,
+                                    n_tiles(conv.weight.shape[0]))
+            assert packed.dtype == torch.bfloat16
+            assert torch.equal(packed, expected), name
+            assert torch.equal(bias, conv.bias.float()), name
+
+    randomize()
+    model.pack_heads()
+    check()
+    first = model.head_pack("conv_out")
+    assert model.head_pack("conv_out")[0] is first[0]   # cached
+    randomize()                                         # in-place copies
+    check()
+    assert model.head_pack("conv_out")[0] is not first[0]
+    model.pack_heads()
+    model = model.to(torch.bfloat16)                    # new tensors
+    check()
