@@ -57,10 +57,23 @@ then, in phases:
      threshold_gray=5
      checkpoint (every answer the old model's or the new one's, no error),
      a body that is not an image (400) and /stats; then ensure_backend and
-     the doctor CLI.
+     the doctor CLI;
+  8. the training path at the same widths, 256x256 crops and batch 8: the
+     train_reconstruction, train_text_detector (warm-started, heads reset)
+     and train_binarizer CLIs chained on a dataset of synthetic-lecture
+     PNGs, a few steps each, with .msgpack outputs and finite per-term
+     losses; one fp32 live-BN step where every parameter gets a finite,
+     nonzero gradient, then 20 steps where the loss falls; step ms (CUDA
+     events), images/s, peak memory and TFLOP/s for fp32 (TF32 convs) and
+     bf16, live BN and frozen BN folded, batch 8 and 64, beside the four
+     heads' cuDNN forward + backward; the kernels of a bf16 step by group
+     under torch.profiler; no K2 launch in any training forward; then the
+     trained checkpoint through Binarizer.from_config, K2 and K1 on packs
+     of its weights, within the 1% flip rate of plain f32, and an
+     optimizer.step() on a live model after which K2 runs on fresh packs.
 
-The launch counts are set to 0 just before each of the three paths (phases
-4, 6 and 7) and read just after. Serving launches are graph replays times
+The launch counts are set to 0 just before each of the four paths (phases
+4, 6, 7 and 8) and read just after. Serving launches are graph replays times
 the launches each graph holds, counted by the service: the wrappers count
 once when a graph is captured. It prints one JSON line of kernel numbers,
 then as its last line ``{"ok": true, "device": {...}}``, and exits 0 only
@@ -82,6 +95,7 @@ WORKSPACE = os.path.join(REPO, "chip_smoke_ws")
 # published H100 SXM peaks (dense, no sparsity) at the 700 W limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
 
 THRESHOLD = 128
@@ -603,10 +617,23 @@ def profiled_spans(run):
         in ("kernel", "gpu_memcpy", "gpu_memset"))
 
 
-def device_breakdown(run, what):
+def inference_group(name, cat):
+    """Kernel group of an inference run's device span."""
+    return ("K2 conv_igemm_kernel" if "conv_igemm_kernel" in name else
+            "K1 threshold_pack_kernel" if "threshold_pack_kernel" in name
+            else "K3 cc_*_kernel" if any(
+                f"cc_{step}_kernel" in name
+                for step in ("local", "merge", "final"))
+            else "torch.cat copies" if "CatArrayBatchedCopy" in name
+            else "copies and memsets" if cat != "kernel"
+            else "trunk and glue (cuDNN, elementwise)")
+
+
+def device_breakdown(run, what, group_of=inference_group):
     """Run ``run()`` once more under torch.profiler and print where the
-    card's time went: device ms by kernel group and the device's busy share
-    of the run's wall clock (the union of kernel and copy spans)."""
+    card's time went: device ms by kernel group (``group_of(name, cat)``)
+    and the device's busy share of the run's wall clock (the union of
+    kernel and copy spans)."""
     wall_ms, spans = profiled_spans(run)
     if not spans:
         log(f"profiled {what}: the profiler saw no device events; device "
@@ -615,14 +642,7 @@ def device_breakdown(run, what):
     groups, counts, names, name_counts = {}, {}, {}, {}
     busy_us, end_us = 0.0, float("-inf")
     for start, end, cat, name in spans:
-        group = ("K2 conv_igemm_kernel" if "conv_igemm_kernel" in name else
-                 "K1 threshold_pack_kernel" if "threshold_pack_kernel" in name
-                 else "K3 cc_*_kernel" if any(
-                     f"cc_{step}_kernel" in name
-                     for step in ("local", "merge", "final"))
-                 else "torch.cat copies" if "CatArrayBatchedCopy" in name
-                 else "copies and memsets" if cat != "kernel"
-                 else "trunk and glue (cuDNN, elementwise)")
+        group = group_of(name, cat)
         groups[group] = groups.get(group, 0.0) + (end - start) / 1e3
         counts[group] = counts.get(group, 0) + 1
         names[name[:60]] = names.get(name[:60], 0.0) + (end - start) / 1e3
@@ -1718,6 +1738,505 @@ def phase_serving(conf, counters):
     return launches, {"buckets": by_bucket, "http": results}
 
 
+# ---------------------------------------------------------------- phase 8
+
+# the training curriculum at the production widths of CONFIG: 256x256 crops
+# and batch 8 (configs/example.conf:176-194), each phase a few steps over
+# 16 frames of both eras with their ground truth; the learning rates are
+# the example config's
+TRAIN_FRAMES = list(range(0, N_FRAMES, 15))
+TRAIN_BATCH = 8
+TRAINING_CONFIG = """BINARIZATION_FCN_LECTURENET_FILENAME = binarizer.msgpack
+FCN_BINARIZER_PRETRAIN_REC_IMAGES_DIR = {ws}/training/images
+FCN_BINARIZER_PRETRAIN_REC_LEARNING_RATE = 0.01
+FCN_BINARIZER_PRETRAIN_REC_EPOCHS = 2
+FCN_BINARIZER_PRETRAIN_REC_MEDIAN = True
+FCN_BINARIZER_PRETRAIN_REC_MEDIAN_BLUR_K = 35
+FCN_BINARIZER_PRETRAIN_RECONSTRUCTION_OUTPUT = {ws}/models/rec_pretrain.msgpack
+FCN_BINARIZER_PRETRAIN_IMAGES_DIR = {ws}/training/images
+FCN_BINARIZER_PRETRAIN_MASKS_DIR = {ws}/training/text_masks
+FCN_BINARIZER_PRETRAIN_LEARNING_RATE = 0.01
+FCN_BINARIZER_PRETRAIN_EPOCHS = 5
+FCN_BINARIZER_PRETRAIN_BATCH_SIZE = {batch}
+FCN_BINARIZER_PRETRAIN_PRELOAD_IMAGES = True
+FCN_BINARIZER_PRETRAIN_USE_RECONSTRUCTION_OUTPUT = True
+FCN_BINARIZER_PRETRAIN_TEXT_OUTPUT = {ws}/models/text_pretrain.msgpack
+FCN_BINARIZER_TRAIN_LEARNING_RATE = 0.001
+FCN_BINARIZER_TRAIN_EPOCHS = 5
+FCN_BINARIZER_TRAIN_BATCH_SIZE = {batch}
+FCN_BINARIZER_TRAIN_USE_PRETRAIN_OUTPUT = True
+FCN_BINARIZER_TRAIN_PRETRAIN_OUTPUT = {ws}/models/text_pretrain.msgpack
+FCN_BINARIZER_TRAIN_OUTPUT = {ws}/models/binarizer.msgpack
+FCN_BINARIZER_TRAIN_CROP_SIZE = (256, 256)
+FCN_BINARIZER_TRAIN_CROP_FLIP_CHANCE = 0.5
+FCN_BINARIZER_TRAIN_CROP_MIN_FOREGROUND = 0.1
+FCN_BINARIZER_TRAIN_COLOR_CHANGE_CHANCE = 0.10
+FCN_BINARIZER_TRAIN_COLOR_INVERT_CHANGE = 0.50
+FCN_BINARIZER_TRAIN_GAUSSIAN_NOISE_CHANCE = 0.20
+FCN_BINARIZER_TRAIN_TEXT_MASK_EXPANSION = 15
+FCN_BINARIZER_TRAIN_WEIGHT_EXPANSION = 1
+TRAIN_PRECISION = fp32
+"""
+# steps timed a combination, after warm-up steps
+TIMED_STEPS = 10
+WARMUP_STEPS = 3
+
+
+def make_training_set():
+    """The training data the curriculum reads, as PNGs from ``encode_png``:
+    frames under training/images (reconstruction and text detector), their
+    ink masks under training/text_masks, and the keyframe/binary pairs of
+    the annotations tree that the binarizer CLI walks. Returns the
+    training config's path."""
+    import numpy as np
+
+    from lecturemath_tpu_torch.utils.png import encode_png
+
+    annotations = os.path.join(WORKSPACE, "output", "annotations",
+                               "SmokeDB_smoke01")
+    dirs = {"images": os.path.join(WORKSPACE, "training", "images"),
+            "text_masks": os.path.join(WORKSPACE, "training", "text_masks"),
+            "keyframes": os.path.join(annotations, "keyframes"),
+            "binary": os.path.join(annotations, "binary")}
+    for path in dirs.values():
+        os.makedirs(path, exist_ok=True)
+    source = make_source()
+    for t in TRAIN_FRAMES:
+        frame = encode_png(source.rgb_frame(t)[:, :, ::-1])
+        gt = np.where(source.binary_frame(t) > 0, 0, 255).astype(np.uint8)
+        for key, data in (("images", frame), ("keyframes", frame),
+                          ("binary", encode_png(gt)),
+                          ("text_masks", encode_png(255 - gt))):
+            with open(os.path.join(dirs[key], f"{t:04d}.png"), "wb") as f:
+                f.write(data)
+    conf = os.path.join(WORKSPACE, "training.conf")
+    with open(conf, "w") as f:
+        f.write(CONFIG.format(ws=WORKSPACE)
+                + TRAINING_CONFIG.format(ws=WORKSPACE, batch=TRAIN_BATCH))
+    return conf
+
+
+def run_training_cli(module, argv):
+    """``module.main(argv)`` with what it prints logged; returns the
+    per-term losses of each epoch it printed."""
+    import contextlib
+    import io
+    import math
+    import re
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        module.main(argv)
+    epochs = []
+    for line in out.getvalue().splitlines():
+        if not line.strip() or line.startswith("preloaded"):
+            continue
+        log(f"  {line}")
+        if "] epoch " in line:
+            epochs.append({key: float(value) for key, value in re.findall(
+                r"(\w+)=([^,\s]+)", line)})
+    if not epochs or not all(math.isfinite(value) for terms in epochs
+                             for value in terms.values()):
+        raise AssertionError(f"{argv[0]}: no finite per-term losses")
+    return epochs
+
+
+def training_curriculum(conf):
+    """Step 1: the three training CLIs chained as the curriculum runs them,
+    on the card, with .msgpack outputs; returns the binarizer's path."""
+    import torch
+
+    from lecturemath_tpu_torch.cli import (train_binarizer,
+                                           train_reconstruction,
+                                           train_text_detector)
+    from lecturemath_tpu_torch.models.convert import load_checkpoint
+
+    steps = len(TRAIN_FRAMES) // TRAIN_BATCH
+    for module, argv in ((train_reconstruction, [conf]),
+                         (train_text_detector, [conf]),
+                         (train_binarizer, [conf, "testing"])):
+        name = module.__name__.rsplit(".", 1)[1]
+        t0 = time.perf_counter()
+        epochs = run_training_cli(module, [name] + argv)
+        wall = time.perf_counter() - t0
+        log(f"{name}: {len(epochs)} epochs of {steps} steps at batch "
+            f"{TRAIN_BATCH} in {wall:.2f} s wall, model build, data and "
+            f"checkpoints included ({len(epochs) * steps * TRAIN_BATCH / wall:.1f} "
+            f"img/s); losses of the first epoch {json.dumps(epochs[0])}, of "
+            f"the last {json.dumps(epochs[-1])}")
+    models = os.path.join(WORKSPACE, "models")
+    rec = load_checkpoint(os.path.join(models, "rec_pretrain.msgpack"))
+    if any(key.startswith("conv_out.") for key in rec):
+        raise AssertionError("the reconstruction checkpoint has a binary head")
+    path = os.path.join(models, "binarizer.msgpack")
+    state = load_checkpoint(path)
+    if not all(torch.isfinite(value).all() for value in state.values()):
+        raise AssertionError("the binarizer checkpoint is not finite")
+    log(f"checkpoints {sorted(os.listdir(models))}")
+    return path
+
+
+def training_data(conf):
+    """The host's ms a batch of each phase's data path (PNG decode, the
+    augmentations, median targets and masks, as the prefetch thread runs
+    them, from preloaded PNGs); returns one host batch of the text-detector
+    phase (every head has a target: text mask, eroded text region and
+    median reconstruction)."""
+    from lecturemath_tpu_torch.core.config import Config
+    from lecturemath_tpu_torch.train.dataset import (LectureNetDataset,
+                                                     find_image_mask_pairs)
+
+    config = Config.from_file(conf)
+    images, masks = find_image_mask_pairs(
+        config.get_str("FCN_BINARIZER_PRETRAIN_IMAGES_DIR"),
+        config.get_str("FCN_BINARIZER_PRETRAIN_MASKS_DIR"))
+    annotations = os.path.join(WORKSPACE, "output", "annotations",
+                               "SmokeDB_smoke01")
+    keyframes, binaries = find_image_mask_pairs(
+        os.path.join(annotations, "keyframes"),
+        os.path.join(annotations, "binary"))
+    rates = {}
+    for name, pairs, options in (
+            ("reconstruction", (images, None),
+             dict(reconstruction_mode=True, reconstruct_median=True)),
+            ("text_detector", (images, masks),
+             dict(reconstruction_mode=False, reconstruct_median=True,
+                  text_mask_expansion=15)),
+            ("binarizer", (keyframes, binaries),
+             dict(reconstruction_mode=False, text_mask_expansion=15))):
+        dataset = LectureNetDataset.from_config(config, *pairs, **options)
+        dataset.preload()
+        t0 = time.perf_counter()
+        batches = [batch for _ in range(2)
+                   for batch in dataset.batches(TRAIN_BATCH)]
+        rates[name] = (time.perf_counter() - t0) * 1e3 / len(batches)
+        if name == "text_detector":
+            host_batch = batches[0]
+    log(f"host data path, ms a batch of {TRAIN_BATCH} on one thread "
+        f"(img/s): " + json.dumps({name: [round(ms, 1), round(
+            TRAIN_BATCH / ms * 1e3, 1)] for name, ms in rates.items()}))
+    return host_batch
+
+
+def fresh_trainer(net_config, dtype, frozen, phase="text_detector",
+                  lr=0.01):
+    """A Trainer on the card over a model drawn from seed 0; ``frozen``:
+    BN frozen and folded into the convs inside the step."""
+    import torch
+
+    from lecturemath_tpu_torch.models.fcn_lecturenet import (FCNLectureNet,
+                                                             init_weights)
+    from lecturemath_tpu_torch.train.trainer import Trainer
+
+    model = init_weights(FCNLectureNet(net_config, compute_dtype=dtype),
+                         torch.Generator().manual_seed(0))
+    return Trainer(model, lr, phase=phase, freeze_bn=frozen,
+                   fold_frozen_bn=frozen, device="cuda")
+
+
+def training_gradients(net_config, host_batch):
+    """Step 2: one fp32 live-BN step where every parameter gets a finite,
+    nonzero gradient, then 20 steps on the same batch where the loss
+    falls."""
+    import torch
+
+    trainer = fresh_trainer(net_config, torch.float32, False)
+    batch = trainer.to_device(host_batch)
+    first = trainer.step(batch)
+    bad, norms = [], []
+    for name, param in trainer.model.named_parameters():
+        grad = param.grad
+        if (grad is None or not torch.isfinite(grad).all()
+                or not (grad != 0).any()):
+            bad.append(name)
+        else:
+            norms.append((grad.norm().item(), name))
+    norms.sort()
+    log(f"one fp32 live-BN step at batch {TRAIN_BATCH}: {len(norms)} of "
+        f"{len(norms) + len(bad)} parameters with a finite, nonzero gradient; "
+        f"losses {json.dumps({k: float(v) for k, v in first.items()})}; "
+        f"smallest gradient norms {[(f'{n:.3g}', name) for n, name in norms[:4]]} "
+        f"(conv biases before a live BN: zero but for rounding, as the "
+        f"batch mean removes them)")
+    if bad:
+        raise AssertionError(f"parameters without a finite, nonzero "
+                             f"gradient: {bad}")
+    curve = [float(first["total"])] + [float(trainer.step(batch)["total"])
+                                       for _ in range(20)]
+    log(f"20 more steps on the same batch: total loss "
+        f"{[round(v, 5) for v in curve]}")
+    if not curve[-1] < curve[0]:
+        raise AssertionError(f"the loss did not fall: {curve[0]} -> "
+                             f"{curve[-1]}")
+
+
+def step_flops(trainer, batch):
+    """The operations of one training step, counted by PyTorch's
+    FlopCounterMode (convolutions and matrix products, forward and
+    backward)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        trainer.step(batch)
+    return counter.get_total_flops()
+
+
+def head_conv_ms(net_config, batch, dtype):
+    """cuDNN's forward and backward (input and weight gradients) of the
+    four k=7 head convs at the training crop: the work a K2 backward would
+    take over."""
+    import torch
+    import torch.nn.functional as F
+
+    k = net_config.pixel_kernel_size
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    total = 0.0
+    for _, c1, c2, n_out, _, _ in head_shapes(net_config):
+        x = torch.randn(batch, c1 + c2, 256, 256, device="cuda",
+                        generator=gen).to(dtype).contiguous(
+            memory_format=torch.channels_last).requires_grad_()
+        w = (torch.randn(n_out, c1 + c2, k, k, device="cuda", generator=gen)
+             * 0.05).to(dtype).requires_grad_()
+        g = torch.randn(batch, n_out, 256, 256, device="cuda",
+                        generator=gen).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+
+        def run():
+            y = F.conv2d(x, w, None, padding=k // 2)
+            torch.autograd.grad(y, (x, w), g)
+
+        total += cuda_ms(run, 5, warmup=2)
+        del x, w, g
+    return total
+
+
+def training_group(name, cat):
+    """Kernel group of a training step's device span."""
+    low = name.lower()
+    if cat != "kernel":
+        return "copies and memsets"
+    for key, group in (("dgrad", "cuDNN dgrad"), ("wgrad", "cuDNN wgrad"),
+                       ("nchwtonhwc", "layout conversions"),
+                       ("nhwctonchw", "layout conversions"),
+                       ("batch_norm", "batch norm"), ("bn_", "batch norm"),
+                       ("max_pool", "max-pool"), ("catarray", "torch.cat"),
+                       ("multi_tensor", "optimizer"), ("foreach", "optimizer"),
+                       ("reduce", "reductions"), ("fprop", "cuDNN fprop"),
+                       ("xmma", "cuDNN other"), ("cutlass", "cuDNN other"),
+                       ("gemm", "cuDNN other"), ("conv", "cuDNN other"),
+                       ("elementwise", "elementwise")):
+        if key in low:
+            return group
+    return "other"
+
+
+def training_step_timings(net_config, host_batch):
+    """Steps 3 and 4: step ms (CUDA events, median of TIMED_STEPS after
+    WARMUP_STEPS), images/s and peak memory for fp32 and bf16, live BN and
+    frozen BN folded, batch 8 and 64; the step's kernels by group under
+    torch.profiler; the heads' cuDNN forward + backward beside the step."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    big = {key: np.concatenate([value] * 8) for key, value in
+           host_batch.items()}
+    results = {}
+    # fp32 runs as the CLIs run it, with PyTorch's default TF32 convolutions
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for precision, dtype in (("fp32", torch.float32),
+                                 ("bf16", torch.bfloat16)):
+            for bn in ("live", "frozen+fold"):
+                for batch_size, batch in ((TRAIN_BATCH, host_batch),
+                                          (8 * TRAIN_BATCH, big)):
+                    trainer = fresh_trainer(net_config, dtype,
+                                            bn == "frozen+fold")
+                    batch = trainer.to_device(batch)
+                    for _ in range(WARMUP_STEPS):
+                        trainer.step(batch)
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    events = []
+                    t0 = time.perf_counter()
+                    for _ in range(TIMED_STEPS):
+                        start = torch.cuda.Event(enable_timing=True)
+                        end = torch.cuda.Event(enable_timing=True)
+                        start.record()
+                        trainer.step(batch)
+                        end.record()
+                        events.append((start, end))
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+                    step_ms = statistics.median(
+                        start.elapsed_time(end) for start, end in events)
+                    peak = torch.cuda.max_memory_allocated() / 2**30
+                    flops = step_flops(trainer, batch)
+                    peak_flops = (PEAK_BF16_FLOPS if dtype == torch.bfloat16
+                                  else PEAK_TF32_FLOPS)
+                    heads_ms = head_conv_ms(net_config, batch_size, dtype)
+                    key = f"{precision} {bn} batch {batch_size}"
+                    results[key] = {
+                        "step_ms": step_ms, "host_ms_per_step": wall_ms,
+                        "img_per_s": batch_size / step_ms * 1e3,
+                        "peak_gib": peak, "tflop_per_step": flops / 1e12,
+                        "tflop_per_s": flops / step_ms / 1e9,
+                        "heads_cudnn_fwd_bwd_ms": heads_ms}
+                    log(f"training step, {key}: {step_ms:.3f} ms (median of "
+                        f"{TIMED_STEPS}, CUDA events; host clock "
+                        f"{wall_ms:.3f} ms a step) = "
+                        f"{batch_size / step_ms * 1e3:.1f} img/s; peak "
+                        f"memory {peak:.2f} GiB; {flops / 1e12:.3f} TFLOP a "
+                        f"step = {flops / step_ms / 1e9:.1f} TFLOP/s, "
+                        f"{flops / step_ms / 1e9 / (peak_flops / 1e12):.3f} "
+                        f"of the {'bf16' if peak_flops == PEAK_BF16_FLOPS else 'TF32'} "
+                        f"peak; the four heads' cuDNN forward + backward "
+                        f"alone {heads_ms:.3f} ms = {heads_ms / step_ms:.3f} "
+                        f"of the step")
+                    if precision == "bf16" and (
+                            bn == "live" or batch_size > TRAIN_BATCH):
+                        device_breakdown(lambda: trainer.step(batch),
+                                         f"one training step, {key}",
+                                         training_group)
+                    del trainer, batch
+                    torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return results
+
+
+def training_inference(conf, binarizer_path, net_config, host_batch):
+    """Step 5: the trained binarizer through Binarizer.from_config, K2 and
+    K1 on freshly packed heads, within the flip rate of plain f32; then an
+    optimizer step on a live model and a forward that must repack."""
+    import numpy as np
+    import torch
+
+    from lecturemath_tpu_torch.core.config import Config
+    from lecturemath_tpu_torch.models.convert import load_checkpoint
+    from lecturemath_tpu_torch.models.fcn_lecturenet import (
+        FCNLectureNet, make_packed_binarizer, unpack_bits_host)
+    from lecturemath_tpu_torch.ops.conv7 import (conv_same_nhwc, n_tiles,
+                                                 pack_weights)
+    from lecturemath_tpu_torch.pipeline.binarize import Binarizer
+
+    def stale_packs(model):
+        """The heads whose cached pack (the one K2 last ran on) is not the
+        pack of their current weights."""
+        stale = []
+        for name, (c1, c2) in model.head_inputs().items():
+            weight = getattr(model, name)[0].weight
+            if not torch.equal(model._head_packs[name][1][0], pack_weights(
+                    weight, c1, c2, n_tiles(weight.shape[0]))):
+                stale.append(name)
+        return stale
+
+    binarizer = Binarizer.from_config(Config.from_file(conf))
+    plain = FCNLectureNet(net_config, plain=True)
+    plain.load_state_dict(load_checkpoint(binarizer_path))
+    plain_bin = Binarizer(plain, batch_size=8, dtype=torch.float32,
+                          device="cuda")
+    source = make_source()
+    pick = [0, 30, 60, 119, 120, 150, 200, 239]
+    frames = torch.from_numpy(np.stack([source.rgb_frame(t)
+                                        for t in pick])).cuda()
+    before = conv_same_nhwc.launches
+    kernel_bits = unpack_bits_host(binarizer._packed_fn(frames).cpu().numpy(),
+                                   WIDTH)
+    if conv_same_nhwc.launches != before + 4:
+        raise AssertionError("the trained binarizer did not run K2's four "
+                             "heads")
+    if stale_packs(binarizer.model):
+        raise AssertionError("K2 did not run on packs of the trained weights")
+    plain_fn = make_packed_binarizer(plain_bin.model)
+    plain_bits = unpack_bits_host(plain_fn(frames).cpu().numpy(), WIDTH)
+    flip_rate = float(np.mean(kernel_bits != plain_bits))
+    truth = np.stack([source.binary_frame(t) for t in pick]) > 0
+    log(f"trained binarizer (bf16, K2 + K1) against plain f32 on "
+        f"{len(pick)} frames: flip rate {flip_rate:.6f} (bound "
+        f"{MAX_FLIP_RATE}); ink share {float(np.mean(kernel_bits == 0)):.4f}, "
+        f"ink mask vs ground truth "
+        f"{float(np.mean((kernel_bits == 0) != truth)):.4f}")
+    if flip_rate > MAX_FLIP_RATE:
+        raise AssertionError(f"trained binarizer flip rate {flip_rate} > "
+                             f"{MAX_FLIP_RATE}")
+
+    # fault 1 on the card: an in-place optimizer step, then a forward that
+    # runs K2 on packs of the new weights
+    trainer = fresh_trainer(net_config, torch.bfloat16, False,
+                            phase="binarizer", lr=0.001)
+    trainer.model.load_state_dict(load_checkpoint(binarizer_path))
+    batch = trainer.to_device(host_batch)
+    x = batch["image"].contiguous(memory_format=torch.channels_last)
+
+    def forward(net):
+        net.eval()
+        with torch.no_grad():
+            return net(x)[0]
+
+    forward(trainer.model)
+    packs = {name: pack[1][0].clone()
+             for name, pack in trainer.model._head_packs.items()}
+    trainer.step(batch)
+    before = conv_same_nhwc.launches
+    after = forward(trainer.model)
+    if conv_same_nhwc.launches != before + 4:
+        raise AssertionError("the live model's forward did not run K2")
+    stale = stale_packs(trainer.model)
+    changed = [name for name, pack in packs.items() if not torch.equal(
+        pack, trainer.model._head_packs[name][1][0])]
+    reference = FCNLectureNet(net_config, compute_dtype=torch.bfloat16)
+    reference.load_state_dict(trainer.model.state_dict())
+    expected = forward(reference.to("cuda",
+                                    memory_format=torch.channels_last))
+    err = (after - expected).abs().max().item()
+    log(f"after optimizer.step() on a live bf16 model: K2 ran on packs of "
+        f"the new weights for {4 - len(stale)} of 4 heads (packs that "
+        f"changed: {changed}); its logits against a model built from the "
+        f"new weights: max |err| {err:.3g}")
+    if stale or not changed:
+        raise AssertionError(f"K2 ran on stale packs after optimizer.step(): "
+                             f"{stale}")
+    if not err <= LOGIT_REL * expected.abs().max().item():
+        raise AssertionError(f"the repacked forward differs by {err}")
+    return flip_rate
+
+
+def phase_training(counters):
+    """Phase 8: the three training phases on the card; returns (launch
+    counts of every kernel in ``counters``, summary dict)."""
+    import torch
+
+    from lecturemath_tpu_torch.core.config import Config
+    from lecturemath_tpu_torch.models.fcn_lecturenet import FCNConfig
+    from lecturemath_tpu_torch.ops.conv7 import conv_same_nhwc
+
+    conf = make_training_set()
+    net_config = FCNConfig.from_config(Config.from_file(conf))
+    for fn in counters.values():
+        fn.launches = 0
+    binarizer_path = training_curriculum(conf)
+    host_batch = training_data(conf)
+    training_gradients(net_config, host_batch)
+    timings = training_step_timings(net_config, host_batch)
+    if conv_same_nhwc.launches:
+        raise AssertionError(f"training forwards launched K2 "
+                             f"{conv_same_nhwc.launches} times")
+    log("training (curriculum, gradients, timed steps): K2 launched 0 "
+        "times; the heads ran F.conv2d")
+    flip_rate = training_inference(conf, binarizer_path, net_config,
+                                   host_batch)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"training path launches {launches}")
+    for name in EXPRESS_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched")
+    torch.cuda.empty_cache()
+    return launches, {"steps": timings, "flip_rate": flip_rate}
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "lecturemath_tpu_torch")):
         print("chip_smoke.py: lecturemath_tpu_torch not found beside this "
@@ -1786,6 +2305,8 @@ def main():
     serving_launches = {}
     serving = {}
     summary = {}
+    training_launches = {}
+    training = {}
     try:
         conf, _ = make_workspace()
         try:
@@ -1811,6 +2332,12 @@ def main():
         except Exception:  # noqa: BLE001 — report every phase, then fail
             traceback.print_exc()
             failures.append("serving path")
+        torch.cuda.empty_cache()
+        try:
+            training_launches, training = phase_training(counters)
+        except Exception:  # noqa: BLE001 — report every phase, then fail
+            traceback.print_exc()
+            failures.append("training path")
     except Exception:  # noqa: BLE001 — report every phase, then fail
         traceback.print_exc()
         failures.append("workspace")
@@ -1828,7 +2355,8 @@ def main():
             records[key]["launches_by_path"] = {
                 "express": launches.get(name, 0),
                 "staged": staged_launches.get(name, 0),
-                "serving": serving_launches.get(name, 0)}
+                "serving": serving_launches.get(name, 0),
+                "training": training_launches.get(name, 0)}
     for key in SERVING_KERNELS:
         if key in records and serving:
             device_us = {bucket: numbers["device_us"]
@@ -1843,6 +2371,10 @@ def main():
         log(f"serving: " + json.dumps({k: {m: round(v, 3) for m, v in r.items()
                                            if isinstance(v, float)}
                                        for k, r in serving["http"].items()}))
+    if training:
+        log("training steps: " + json.dumps(
+            {key: {m: round(v, 3) for m, v in numbers.items()}
+             for key, numbers in training["steps"].items()}))
     log(f"express {summary.get('fps', 0):.2f} fps on {card}")
     log(card)
     log(json.dumps({"kernels": list(records.values())}))

@@ -21,13 +21,21 @@ The four pixel_k head convs go through ``ops.conv7.conv_same_nhwc`` (kernel
 K2 on the card), which reads diff and the feature map as two tensors, so
 the heads' concats are never built; the trunk's convs, deconvs and pools
 stay ``F.conv2d``, ``F.conv_transpose2d`` and ``F.max_pool2d``. GELU is the
-exact erf form.
+exact erf form. K2 has no backward: a forward that must carry gradients to
+the heads (training) runs them as ``F.conv2d`` over the concat, as the JAX
+package's training forward does (``_head``).
+
+Training runs in mixed precision with ``compute_dtype`` (bf16) over f32
+master weights: each conv casts its weights to the compute dtype, each
+BatchNorm runs in ``bn_dtype`` (f32 by default) against f32 running
+buffers, and its output goes back to the compute dtype after the
+activation, as the JAX package's modules cast.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,7 +43,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..core.config import Config
-from ..ops.conv7 import conv_same_nhwc, conv_same_plain, n_tiles, pack_weights
+from ..ops.conv7 import (conv_same_nhwc, conv_same_plain, n_tiles, needs_grad,
+                         pack_weights)
 from ..ops.postprocess import pack_bits, threshold_pack, threshold_pack_plain
 from ..utils.image import rgb_to_yuv420
 
@@ -89,23 +98,26 @@ def _conv_block(c_in: int, c_out: int, k: int, fold_bn: bool,
     return nn.Sequential(*layers)
 
 
-def _forget_head_packs(module: "FCNLectureNet", _keys) -> None:
-    module._head_packs.clear()
-
-
 class FCNLectureNet(nn.Module):
     """``fold_bn``: the BatchNorms are Identity and their affines live in the
-    conv weights (see ``fold_model``); inference only. ``plain``: the heads
-    and the packed tail run the plain PyTorch versions of the kernels even
-    on the card (the reference the kernels are compared with)."""
+    conv weights (see ``fold_model``; the trainer's frozen-BN fold runs this
+    structure on weights folded inside the step). ``plain``: the heads and
+    the packed tail run the plain PyTorch versions of the kernels even on
+    the card (the reference the kernels are compared with).
+    ``compute_dtype`` (default: the weights' dtype) and ``bn_dtype``
+    (default: the compute dtype) set the mixed precision of training."""
 
     def __init__(self, config: FCNConfig, reconstruction_mode: bool = False,
-                 fold_bn: bool = False, plain: bool = False):
+                 fold_bn: bool = False, plain: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 bn_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.config = config
         self.reconstruction_mode = reconstruction_mode
         self.fold_bn = fold_bn
         self.plain = plain
+        self._compute_dtype = compute_dtype
+        self._bn_dtype = bn_dtype
         cfg = config
         k, pk = cfg.kernel_size, cfg.pixel_kernel_size
         if pk % 2 == 0 or pk > 7:
@@ -145,19 +157,25 @@ class FCNLectureNet(nn.Module):
                                              fold_bn, None)
             self.conv_out = _conv_block(cfg.in_channels + p2, 1, pk, fold_bn,
                                         None)
-        # K2's packed head weights (``head_pack``), dropped when the weights
-        # are loaded anew or moved
-        self._head_packs: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
-        self.register_load_state_dict_post_hook(_forget_head_packs)
+        # K2's packed head weights (``head_pack``), each beside the key of
+        # the weights it was packed from
+        self._head_packs: Dict[str, Tuple[tuple, Tuple[torch.Tensor,
+                                                       torch.Tensor]]] = {}
 
     def _apply(self, fn, *args, **kwargs):
-        # .to, .cuda, .half and the like make new weight tensors
+        # .to, .cuda, .half and the like make new weight tensors, which the
+        # allocator may place where the old ones were
         self._head_packs = {}
         return super()._apply(fn, *args, **kwargs)
 
     @property
     def dtype(self) -> torch.dtype:
+        """The weights' dtype."""
         return self.mid_block[0].weight.dtype
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return self._compute_dtype or self.dtype
 
     def head_inputs(self) -> Dict[str, Tuple[int, int]]:
         """Channels of the two inputs of each pixel_k head conv, as the
@@ -170,17 +188,22 @@ class FCNLectureNet(nn.Module):
 
     def head_pack(self, name: str) -> Tuple[torch.Tensor, torch.Tensor]:
         """(``pack_weights`` of head ``name``'s weight, its bias in f32),
-        computed once and kept until ``load_state_dict`` or a move (``.to``)
-        replaces the weights."""
-        pack = self._head_packs.get(name)
-        if pack is None:
-            conv = getattr(self, name)[0]
-            c1, c2 = self.head_inputs()[name]
-            with torch.no_grad():
-                pack = (pack_weights(conv.weight, c1, c2,
-                                     n_tiles(conv.weight.shape[0])),
-                        conv.bias.detach().float().contiguous().clone())
-            self._head_packs[name] = pack
+        computed once and kept while the weight and bias tensors stay the
+        same: the cache key is each one's ``data_ptr()`` and ``_version``,
+        so an in-place update (``optimizer.step()``, ``load_state_dict``)
+        repacks, and a move (``.to``) drops every pack."""
+        conv = getattr(self, name)[0]
+        key = tuple((t.data_ptr(), t._version)
+                    for t in (conv.weight, conv.bias))
+        cached = self._head_packs.get(name)
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        c1, c2 = self.head_inputs()[name]
+        with torch.no_grad():
+            pack = (pack_weights(conv.weight, c1, c2,
+                                 n_tiles(conv.weight.shape[0])),
+                    conv.bias.detach().float().contiguous().clone())
+        self._head_packs[name] = (key, pack)
         return pack
 
     def pack_heads(self) -> None:
@@ -191,16 +214,62 @@ class FCNLectureNet(nn.Module):
             for name in self.head_inputs():
                 self.head_pack(name)
 
+    def _bn_act(self, norm: nn.Module, y: torch.Tensor,
+                activation: Optional[Callable] = None) -> torch.Tensor:
+        """BatchNorm (Identity once folded) in ``bn_dtype``, then the
+        activation, back in the compute dtype."""
+        dt = y.dtype
+        y = norm(y.to(self._bn_dtype or dt))
+        if activation is not None:
+            y = activation(y)
+        return y.to(dt)
+
+    def _block(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """Conv block ``name`` (conv, BN, optional activation) on ``x``,
+        with the conv's weights cast to ``x``'s dtype."""
+        block = getattr(self, name)
+        conv, dt = block[0], x.dtype
+        y = conv._conv_forward(x, conv.weight.to(dt), conv.bias.to(dt))
+        return self._bn_act(block[1], y, block[2] if len(block) > 2 else None)
+
+    def _up(self, level: int, x: torch.Tensor) -> torch.Tensor:
+        """Transposed conv (2x2, stride 2) + BN + GELU of up block
+        ``level``."""
+        deconv = getattr(self, f"transposed_conv_{level}")
+        up = getattr(self, f"upsample_block_{level}")
+        dt = x.dtype
+        y = F.conv_transpose2d(x, deconv.weight.to(dt), deconv.bias.to(dt),
+                               stride=2)
+        return self._bn_act(up[0], y, up[1])
+
     def _head(self, name: str, x: torch.Tensor, gelu: bool,
               out_dtype: torch.dtype,
               x2: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Head conv ``name`` through kernel K2 (its plain version with
-        ``plain``) on ``x``, or on ``x`` and ``x2`` read as their channel
-        concat without building it; bias and GELU fuse into the kernel once
-        BN is folded. On the card K2 takes the head's cached packed
-        weights (``head_pack``)."""
-        conv, bn = getattr(self, name)[0], getattr(self, name)[1]
+        """Head conv ``name`` on ``x``, or on ``x`` and ``x2`` read as their
+        channel concat. Two routes, chosen here and nowhere else:
+
+          * a forward that carries gradients to the head (grad enabled and
+            its weight, bias or an input requires grad: training) runs
+            ``F.conv2d`` over the concat in the compute dtype. K2 has no
+            backward, and this is what the JAX package's training forward
+            computes (its heads are XLA convs; no Pallas call is reachable
+            from its training step);
+          * any other forward runs kernel K2 (``conv_same_nhwc``; its plain
+            version with ``plain`` or for CPU tensors), which reads the two
+            inputs without the concat. On the card K2 takes the head's
+            cached packed weights (``head_pack``).
+
+        Bias and GELU fuse into K2 once BN is folded."""
+        block = getattr(self, name)
+        conv, bn = block[0], block[1]
         folded = isinstance(bn, nn.Identity)
+        activation = F.gelu if gelu else None
+        if needs_grad(x, x2, conv.weight, conv.bias):
+            dt = x.dtype
+            xin = x if x2 is None else torch.cat([x, x2], dim=1)
+            y = conv._conv_forward(xin, conv.weight.to(dt), conv.bias.to(dt))
+            y = self._bn_act(bn, y, activation)
+            return y.to(out_dtype)
         conv_fn = conv_same_plain if self.plain else conv_same_nhwc
         x = x.contiguous(memory_format=torch.channels_last)
         if x2 is not None:
@@ -212,10 +281,8 @@ class FCNLectureNet(nn.Module):
         if folded:
             return conv_fn(x, conv.weight, bias, "gelu" if gelu else None,
                            out_dtype, x2, **extra)
-        y = bn(conv_fn(x, conv.weight, bias, None, x.dtype, x2, **extra))
-        if gelu:
-            y = F.gelu(y)
-        return y.to(out_dtype)
+        y = conv_fn(x, conv.weight, bias, None, x.dtype, x2, **extra)
+        return self._bn_act(bn, y, activation).to(out_dtype)
 
     def forward(self, x0: torch.Tensor, mode: str = "full"):
         """x0: (B, 3, H, W) float in [-1, 1], H and W multiples of 32.
@@ -227,30 +294,29 @@ class FCNLectureNet(nn.Module):
         :325-352). With ``reconstruction_mode``, 'full' returns rec only."""
         if mode not in ("full", "encode", "diff"):
             raise ValueError(f"unknown mode {mode!r}")
-        dt = self.dtype
+        dt = self.compute_dtype
         x = x0.to(dt)
 
         skips = []
         for level in range(1, 6):
-            pre = getattr(self, f"conv_down_block_{level}")(x)
+            pre = self._block(f"conv_down_block_{level}", x)
             skips.append(pre)
             x = F.max_pool2d(pre, 2, 2)
-        x = self.mid_block(x)
+        x = self._block("mid_block", x)
         if mode == "encode":
             return x.float()
 
         for level in range(5, 0, -1):
             skip = skips[level - 1]
-            x = getattr(self, f"transposed_conv_{level}")(x)
-            x = getattr(self, f"upsample_block_{level}")(x)
+            x = self._up(level, x)
             # crop to the skip (odd encoder sizes), as the reference does
             # with ConvTranspose2d(output_size=...)
             x = x[:, :, :skip.shape[2], :skip.shape[3]]
-            x = getattr(self, f"conv_up_block_{level}")(
-                torch.cat([x, skip], dim=1))
+            x = self._block(f"conv_up_block_{level}",
+                            torch.cat([x, skip], dim=1))
         x_up1 = x
 
-        rec = self.conv_reconstruct(x_up1)
+        rec = self._block("conv_reconstruct", x_up1)
         if self.reconstruction_mode:
             if mode == "full":
                 return rec
@@ -282,14 +348,20 @@ _CONV_BN_BLOCKS = ([f"conv_down_block_{i}" for i in range(1, 6)]
                       "conv_text_mask_out", "conv_out"])
 
 
-def fold_batch_norms(state_dict: Dict[str, torch.Tensor], eps: float = 1e-5
-                     ) -> Dict[str, torch.Tensor]:
+def fold_batch_norms(state_dict: Dict[str, torch.Tensor], eps: float = 1e-5,
+                     differentiable: bool = False) -> Dict[str, torch.Tensor]:
     """Fold every inference BatchNorm affine into the preceding conv/deconv
     weight+bias: y = a*(conv(x)+bias-mean)+b == conv'(x) with weight*a and
     bias a*(bias-mean)+b, in f32. Returns the state dict of a model built
     with ``fold_bn=True``. Conv weights scale on axis 0 (O, I, kh, kw);
-    ConvTranspose2d weights on axis 1 (I, O, kh, kw)."""
-    sd = {key: value.detach().float() for key, value in state_dict.items()}
+    ConvTranspose2d weights on axis 1 (I, O, kh, kw).
+
+    ``differentiable``: keep the autograd graph, so a training step that
+    runs the folded model on the result (frozen running statistics; the JAX
+    package's ``fold_batch_norms(xp=jnp)`` inside its step) sends the
+    gradients back to the original conv and BN parameters."""
+    sd = {key: (value if differentiable else value.detach()).float()
+          for key, value in state_dict.items()}
     out: Dict[str, torch.Tensor] = {}
 
     def fold(conv: str, bn: str, out_axis: int) -> None:

@@ -81,6 +81,10 @@ def _load() -> Optional[ctypes.CDLL]:
                                 ctypes.c_int32, ctypes.c_int32, u8p]
     lib.resample_u8.restype = None
 
+    lib.median_u8.argtypes = [u8p, ctypes.c_int32, ctypes.c_int32,
+                              ctypes.c_int32, ctypes.c_int32, u8p]
+    lib.median_u8.restype = None
+
     _lib = lib
     return _lib
 
@@ -206,4 +210,18 @@ def resample_u8(data: np.ndarray, axis: int, first: np.ndarray,
                     inner, _ptr(first, ctypes.c_int64),
                     _ptr(weights, ctypes.c_int32), ksize, dst_len, bits,
                     _ptr(out, ctypes.c_uint8))
+    return out
+
+
+def median_u8(img: np.ndarray, ksize: int) -> np.ndarray:
+    """``cv2.medianBlur(img, ksize)`` of uint8 [H, W] or [H, W, C] (odd
+    ksize, replicated border) by a sliding histogram. Releases the
+    interpreter lock."""
+    lib = get_lib()
+    assert lib is not None, "native library unavailable"
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    channels = img.shape[2] if img.ndim == 3 else 1
+    out = np.empty_like(img)
+    lib.median_u8(_ptr(img, ctypes.c_uint8), img.shape[0], img.shape[1],
+                  channels, ksize, _ptr(out, ctypes.c_uint8))
     return out

@@ -14,6 +14,9 @@
 //     along a row, so numpy cannot do them a row at a time)
 //   * resample_u8: one pass of Pillow's fixed-point separable resample
 //     (stage 01's LANCZOS halving above the pixel cap)
+//   * median_u8: cv2.medianBlur's exact median with a replicated border
+//     (the reconstruction pretraining's k=35 targets), by a sliding
+//     histogram
 //
 // Build: g++ -O3 -march=native -shared -fPIC lecturemath_native.cpp -o liblecturemath_native.so
 
@@ -310,6 +313,48 @@ void resample_u8(const uint8_t* src, int64_t outer, int32_t src_len,
             for (int64_t i = 0; i < inner; ++i) {
                 const int32_t v = acc[i] >> bits;
                 dst[i] = static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
+            }
+        }
+    }
+}
+
+// cv2.medianBlur of uint8 `src` [height, width, channels] with an odd
+// `ksize`: the exact median (rank ksize^2 / 2) of each ksize x ksize window,
+// rows and columns past the image replicated, each channel on its own.
+// Huang's sliding histogram along each row, the median tracked by a
+// pointer and the count of values below it.
+void median_u8(const uint8_t* src, int32_t height, int32_t width,
+               int32_t channels, int32_t ksize, uint8_t* out) {
+    const int32_t r = ksize / 2;
+    const int32_t rank = ksize * ksize / 2;
+    auto clamp = [](int32_t v, int32_t hi) {
+        return v < 0 ? 0 : (v > hi ? hi : v);
+    };
+    auto at = [&](int32_t y, int32_t x, int32_t c) {
+        return src[(static_cast<int64_t>(clamp(y, height - 1)) * width
+                    + clamp(x, width - 1)) * channels + c];
+    };
+    for (int32_t c = 0; c < channels; ++c) {
+        for (int32_t y = 0; y < height; ++y) {
+            int32_t hist[256] = {0};
+            for (int32_t dy = -r; dy <= r; ++dy)
+                for (int32_t dx = -r; dx <= r; ++dx) ++hist[at(y + dy, dx, c)];
+            int32_t m = 0, below = 0;
+            for (int32_t x = 0; x < width; ++x) {
+                if (x > 0) {
+                    for (int32_t dy = -r; dy <= r; ++dy) {
+                        const int32_t gone = at(y + dy, x - 1 - r, c);
+                        const int32_t come = at(y + dy, x + r, c);
+                        --hist[gone];
+                        if (gone < m) --below;
+                        ++hist[come];
+                        if (come < m) ++below;
+                    }
+                }
+                while (below > rank) below -= hist[--m];
+                while (below + hist[m] <= rank) below += hist[m++];
+                out[(static_cast<int64_t>(y) * width + x) * channels + c] =
+                    static_cast<uint8_t>(m);
             }
         }
     }

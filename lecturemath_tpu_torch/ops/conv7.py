@@ -66,6 +66,14 @@ def pack_weights(weight: torch.Tensor, c1: int, c2: int,
         groups, g1 + g2, steps, nt, 32, 2, 2).contiguous()
 
 
+def needs_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    """True when autograd would record a function of ``tensors``: grad mode
+    is on and one of them requires grad. K2 has no backward, so such a call
+    must not reach it."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def conv_same_plain(x: torch.Tensor, weight: torch.Tensor,
                     bias: Optional[torch.Tensor] = None,
                     activation: Optional[str] = None,
@@ -105,10 +113,20 @@ def conv_same_nhwc(x: torch.Tensor, weight: torch.Tensor,
     f32; default the input's dtype). ``packed``, when given, is
     ``pack_weights`` of ``weight`` computed beforehand (the model caches
     it per head), so the call launches no packing kernels. One kernel
-    launch for a CUDA tensor; the plain version for a CPU tensor."""
+    launch for a CUDA tensor; the plain version for a CPU tensor.
+
+    The kernel has no backward: on the card, with grad enabled and any of
+    ``x``, ``x2``, ``weight`` or ``bias`` requiring grad, the call raises
+    instead of returning an output no loss could train (the model routes
+    such forwards to ``F.conv2d``)."""
     device = x.device
     if device.type == "cpu":
         return conv_same_plain(x, weight, bias, activation, out_dtype, x2)
+    if needs_grad(x, x2, weight, bias):
+        raise RuntimeError(
+            "conv_same_nhwc: kernel K2 has no backward, and an input, the "
+            "weight or the bias requires grad; call it under torch.no_grad() "
+            "or use F.conv2d (FCNLectureNet routes training forwards there)")
     if device.type != "cuda":
         raise ValueError(f"conv_same_nhwc: unsupported device {device}")
     if activation not in _ACTIVATIONS:

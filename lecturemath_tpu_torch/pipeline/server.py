@@ -28,8 +28,9 @@ model resident and jit-warm; the port keeps the same contract on the card:
 Run via ``python -m lecturemath_tpu_torch.cli.serve <config> [-port N]``;
 programmatic use via BinarizeService. The HTTP contract:
 
-  POST /binarize     image body (PNG, any row filters; other formats
-                     through OpenCV where it is installed) -> binary PNG (ink=0 on 255, the model's
+  POST /binarize     image body (PNG of any kind, decoded without OpenCV;
+                     JPEG and other formats only where OpenCV is
+                     installed, else 400) -> binary PNG (ink=0 on 255, the model's
                      raw polarity; ``?invert=1`` flips to ink=255 — the
                      stage-01 artifact polarity)
   POST /reload       JSON {"checkpoint": optional path} -> hot-swap the
@@ -61,7 +62,7 @@ from ..models.fcn_lecturenet import (make_packed_binarizer,
 from ..ops.conv7 import conv_same_nhwc
 from ..ops.postprocess import threshold_pack
 from ..utils.image import resize_area, resize_nearest
-from ..utils.png import PNGFormatError, decode_png, encode_png
+from ..utils.png import PNGFormatError, decode_png_color, encode_png
 from .binarize import _BYTES_PER_PIXEL, Binarizer, resolve_model_size
 
 # the kernel wrappers a serving graph holds, by their launch counters
@@ -497,23 +498,18 @@ def _opencv():
 
 
 def decode_image(payload: bytes) -> np.ndarray:
-    """Request body -> uint8 RGB [H, W, 3]. PNG (8-bit gray, RGB or RGBA)
-    decodes in numpy; any other format, or a PNG of another kind, through
-    ``cv2.imdecode`` where OpenCV is installed. Raises ValueError naming
-    what could not be decoded."""
+    """Request body -> uint8 RGB [H, W, 3], as ``cv2.imdecode(payload,
+    cv2.IMREAD_COLOR)`` gives it. A PNG of any kind decodes without
+    OpenCV (``utils/png.py decode_png_color``); JPEG and the other formats
+    need OpenCV, and where it is not installed they are refused. Raises
+    ValueError naming what could not be decoded."""
     kind = next((name for magic, name in _MAGIC if payload.startswith(magic)),
                 None)
     if kind == "PNG":
         try:
-            image = decode_png(payload)
+            return decode_png_color(payload)
         except PNGFormatError as err:
-            if _opencv() is None:
-                raise ValueError(f"PNG body not decodable without OpenCV: "
-                                 f"{err}") from None
-        else:
-            if image.ndim == 2:   # gray, as cv2.IMREAD_COLOR gives it
-                image = np.repeat(image[:, :, None], 3, axis=2)
-            return image
+            raise ValueError(f"PNG body not decodable: {err}") from None
     cv2 = _opencv()
     if cv2 is None:
         if kind is None:

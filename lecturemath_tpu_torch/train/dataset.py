@@ -1,0 +1,290 @@
+"""Training dataset: image(+GT) pairs with the reference augmentation menu,
+yielding numpy batches ready for device upload.
+
+Covers the reference LectureNet_DataSet behaviors
+(reference: FCN_lecturenet_dataset.py:16-409): border-crop to the inked
+region, auto-upscale of small images, PNG-in-RAM preloading with fg/bg pixel
+accounting, and the per-sample augmentation chain (train/augment.py).
+
+Each sample dict has: image [H,W,3] float32 in [-1,1] NHWC, target (gt mask
+or normalized image in reconstruction mode), weights, text_mask, median.
+Samples stay NHWC numpy; the trainer makes NCHW tensors of them.
+
+Images are read without OpenCV: PNGs of every kind through
+``utils/png.py`` (as ``cv2.imread`` reads them), the upscale through
+``utils/image.py`` (INTER_LINEAR and INTER_NEAREST, bit-exact). JPEG files
+are found as before but only OpenCV decodes them: where it is not
+installed, loading one raises ``ImageFormatError``.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..core.config import Config
+from ..utils.image import resize_linear, resize_nearest
+from ..utils.png import (PNGFormatError, decode_png_color, decode_png_gray,
+                         encode_png)
+from . import augment
+
+
+class ImageFormatError(ValueError):
+    """A training image the port cannot decode without OpenCV (JPEG)."""
+
+
+def read_image(path: str) -> np.ndarray:
+    """``cv2.imread(path)[:, :, ::-1]``: the file as uint8 RGB [H, W, 3].
+    PNGs of every kind decode without OpenCV; any other file needs it."""
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        return decode_png_color(data)
+    except PNGFormatError as err:
+        if data.startswith(b"\x89PNG"):
+            raise ImageFormatError(f"{path}: {err}") from None
+    try:
+        import cv2
+    except ImportError:
+        raise ImageFormatError(
+            f"{path}: not a PNG; JPEG and other formats need OpenCV (cv2), "
+            f"which is not installed; convert the file to PNG") from None
+    image = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    if image is None:
+        raise ImageFormatError(f"{path}: not a decodable image")
+    return np.ascontiguousarray(image[:, :, ::-1])
+
+
+def find_images(directory: str, extensions=(".png", ".jpg", ".jpeg")) -> List[str]:
+    """Reference: LectureNet_Util.get_images_from_directory (util.py:5-32)."""
+    out = []
+    for name in sorted(os.listdir(directory)):
+        if name.lower().endswith(extensions):
+            out.append(os.path.join(directory, name))
+    return out
+
+
+def find_image_mask_pairs(image_dir: str, mask_dir: str):
+    images, masks = [], []
+    for path in find_images(image_dir):
+        name = os.path.splitext(os.path.basename(path))[0]
+        for ext in (".png", ".jpg", ".jpeg"):
+            mask_path = os.path.join(mask_dir, name + ext)
+            if os.path.exists(mask_path):
+                images.append(path)
+                masks.append(mask_path)
+                break
+    return images, masks
+
+
+class LectureNetDataset:
+    def __init__(self, image_list: Sequence[str],
+                 ground_truth_list: Optional[Sequence[str]] = None,
+                 reconstruction_mode: bool = False,
+                 crop_size: Optional[Tuple[int, int]] = (256, 256),
+                 crop_remove_empty_borders: bool = False,
+                 crop_min_fg_prc: Optional[float] = None,
+                 flip_chance: Optional[float] = None,
+                 color_invert_chance: Optional[float] = None,
+                 color_change_chance: Optional[float] = None,
+                 luminosity_change_chance: Optional[float] = None,
+                 gaussian_noise_chance: Optional[float] = None,
+                 gaussian_noise_level: float = 5.0,
+                 weight_expansion: Optional[int] = None,
+                 weight_fg_extra: float = 1.0,
+                 text_mask_expansion: Optional[int] = None,
+                 reconstruct_median: bool = False,
+                 reconstruct_median_k: int = 35,
+                 seed: int = 0):
+        if ground_truth_list is not None:
+            assert len(image_list) == len(ground_truth_list)
+        self.image_list = list(image_list)
+        self.ground_truth_list = (list(ground_truth_list)
+                                  if ground_truth_list is not None else None)
+        self.reconstruction_mode = reconstruction_mode
+        self.crop_size = crop_size
+        self.crop_remove_empty_borders = crop_remove_empty_borders
+        self.crop_min_fg_prc = crop_min_fg_prc
+        self.flip_chance = flip_chance
+        self.color_invert_chance = color_invert_chance
+        self.color_change_chance = color_change_chance
+        self.luminosity_change_chance = luminosity_change_chance
+        self.gaussian_noise_chance = gaussian_noise_chance
+        self.gaussian_noise_level = gaussian_noise_level
+        self.weight_expansion = weight_expansion
+        self.weight_fg_extra = weight_fg_extra
+        self.text_mask_expansion = text_mask_expansion
+        self.reconstruct_median = reconstruct_median
+        self.reconstruct_median_k = reconstruct_median_k
+        self.rng = np.random.default_rng(seed)
+
+        self._preloaded: Optional[List] = None
+        self.total_foreground = 0
+        self.total_background = 0
+
+    @classmethod
+    def from_config(cls, config: Config, image_list, ground_truth_list,
+                    reconstruction_mode: bool, **overrides):
+        """Wire the FCN_BINARIZER_TRAIN_* augmentation keys
+        (reference: configs/FCN_LectureNet.conf:69-89)."""
+        kwargs = dict(
+            crop_size=config.get("FCN_BINARIZER_TRAIN_CROP_SIZE", (256, 256)),
+            crop_remove_empty_borders=config.get_bool(
+                "FCN_BINARIZER_TRAIN_CROP_REMOVE_EMPTY_BORDERS", False),
+            crop_min_fg_prc=config.get("FCN_BINARIZER_TRAIN_CROP_MIN_FOREGROUND"),
+            flip_chance=config.get("FCN_BINARIZER_TRAIN_CROP_FLIP_CHANCE"),
+            color_invert_chance=config.get("FCN_BINARIZER_TRAIN_COLOR_INVERT_CHANGE"),
+            color_change_chance=config.get("FCN_BINARIZER_TRAIN_COLOR_CHANGE_CHANCE"),
+            luminosity_change_chance=config.get(
+                "FCN_BINARIZER_TRAIN_LUMINOSITY_CHANGE_CHANCE"),
+            gaussian_noise_chance=config.get("FCN_BINARIZER_TRAIN_GAUSSIAN_NOISE_CHANCE"),
+            gaussian_noise_level=config.get(
+                "FCN_BINARIZER_TRAIN_GAUSSIAN_NOISE_LEVEL", 5.0),
+            weight_expansion=config.get("FCN_BINARIZER_TRAIN_WEIGHT_EXPANSION"),
+            weight_fg_extra=config.get(
+                "FCN_BINARIZER_TRAIN_WEIGHT_FOREGROUND_EXTRA", 1.0),
+            text_mask_expansion=config.get("FCN_BINARIZER_TRAIN_TEXT_MASK_EXPANSION"),
+            reconstruct_median=config.get_bool(
+                "FCN_BINARIZER_PRETRAIN_REC_MEDIAN", False),
+            reconstruct_median_k=config.get(
+                "FCN_BINARIZER_PRETRAIN_REC_MEDIAN_BLUR_K", 35),
+        )
+        kwargs.update(overrides)
+        return cls(image_list, ground_truth_list, reconstruction_mode, **kwargs)
+
+    # ------------------------------------------------------------- loading
+
+    def __len__(self) -> int:
+        return len(self.image_list)
+
+    def load_pair(self, index: int):
+        img = read_image(self.image_list[index])
+        gt = None
+        if self.ground_truth_list is not None:
+            # cv2.imread(...)[:, :, 0]: the BLUE channel of an RGB GT
+            gt = np.ascontiguousarray(
+                read_image(self.ground_truth_list[index])[:, :, 2])
+
+        h, w = img.shape[:2]
+
+        # crop to the inked region with a small margin (dataset.py:85-120)
+        if self.crop_remove_empty_borders and gt is not None:
+            ink = 255 - gt
+            cols = np.nonzero(ink.max(axis=0))[0]
+            rows = np.nonzero(ink.max(axis=1))[0]
+            if len(cols) and len(rows):
+                margin = 10
+                x0, x1 = max(0, cols[0] - margin), min(w, cols[-1] + margin)
+                y0, y1 = max(0, rows[0] - margin), min(h, rows[-1] + margin)
+                if self.crop_size is not None:
+                    ch, cw = self.crop_size
+                    if x1 - x0 < cw:
+                        mid = (x0 + x1) // 2
+                        x0 = max(0, mid - cw // 2 - 1)
+                        x1 = min(w, x0 + cw)
+                    if y1 - y0 < ch:
+                        mid = (y0 + y1) // 2
+                        y0 = max(0, mid - ch // 2 - 1)
+                        y1 = min(h, y0 + ch)
+                img = img[y0:y1, x0:x1]
+                gt = gt[y0:y1, x0:x1]
+                h, w = img.shape[:2]
+
+        # auto-upscale small images to at least the crop size (dataset.py:123-138)
+        if self.crop_size is not None and (h < self.crop_size[0] or w < self.crop_size[1]):
+            scale = max(self.crop_size[0] / h, self.crop_size[1] / w)
+            new_w, new_h = int(round(w * scale)), int(round(h * scale))
+            new_w = max(new_w, self.crop_size[1])
+            new_h = max(new_h, self.crop_size[0])
+            img = resize_linear(img, (new_w, new_h))
+            if gt is not None:
+                gt = resize_nearest(gt, (new_w, new_h))
+
+        return img, gt
+
+    def preload(self, verbose: bool = False) -> None:
+        """Keep PNG-compressed copies in RAM + count fg/bg pixels
+        (dataset.py:145-179); the round trip is lossless."""
+        self._preloaded = []
+        self.total_foreground = 0
+        self.total_background = 0
+        for index in range(len(self)):
+            img, gt = self.load_pair(index)
+            if gt is not None:
+                fg = int((gt == 0).sum())
+                self.total_foreground += fg
+                self.total_background += gt.size - fg
+            img_png = encode_png(img[:, :, ::-1])
+            gt_png = encode_png(gt) if gt is not None else None
+            self._preloaded.append((img_png, gt_png))
+            if verbose:
+                print(f"preloaded {index + 1}/{len(self)}", end="\r")
+
+    def _get_pair(self, index: int):
+        if self._preloaded is not None:
+            img_png, gt_png = self._preloaded[index]
+            img = decode_png_color(img_png)
+            gt = decode_png_gray(gt_png) if gt_png is not None else None
+            return img, gt
+        return self.load_pair(index)
+
+    # ------------------------------------------------------------ sampling
+
+    def sample(self, index: int) -> Dict[str, np.ndarray]:
+        rng = self.rng
+        img, gt = self._get_pair(index)
+
+        if self.flip_chance is not None:
+            img, gt = augment.random_flips(rng, img, gt, self.flip_chance)
+
+        if self.crop_size is not None:
+            img, gt = augment.random_crop_min_fg(rng, img, gt, self.crop_size,
+                                                 self.crop_min_fg_prc)
+
+        if (self.color_invert_chance is not None and
+                rng.random() < self.color_invert_chance):
+            img = augment.color_invert(img)
+        if (self.color_change_chance is not None and
+                rng.random() < self.color_change_chance):
+            img = augment.hue_shift(rng, img)
+        if (self.gaussian_noise_chance is not None and
+                rng.random() < self.gaussian_noise_chance):
+            img = augment.gaussian_noise(rng, img, self.gaussian_noise_level)
+        if (self.luminosity_change_chance is not None and
+                rng.random() < self.luminosity_change_chance):
+            img = augment.luminosity_jitter(rng, img)
+
+        img = np.ascontiguousarray(img)
+        sample = {"image": img.astype(np.float32) / 127.5 - 1.0}
+
+        if self.text_mask_expansion is not None and gt is not None:
+            mask = augment.text_region_mask(np.ascontiguousarray(gt),
+                                            self.text_mask_expansion)
+            sample["text_mask"] = (mask.astype(np.float32) / 255.0)[..., None]
+
+        if self.reconstruct_median:
+            median = augment.median_target(img, self.reconstruct_median_k)
+            sample["median"] = median.astype(np.float32) / 127.5 - 1.0
+
+        if self.reconstruction_mode:
+            sample["target"] = sample["image"]
+        elif gt is not None:
+            sample["target"] = (gt.astype(np.float32) / 255.0)[..., None]
+
+        if self.weight_expansion is not None and gt is not None:
+            sample["weights"] = augment.weight_map(
+                np.ascontiguousarray(gt), self.weight_expansion,
+                self.weight_fg_extra)[..., None]
+
+        return sample
+
+    def batches(self, batch_size: int, shuffle: bool = True):
+        order = np.arange(len(self))
+        if shuffle:
+            self.rng.shuffle(order)
+        for start in range(0, len(order) - batch_size + 1, batch_size):
+            samples = [self.sample(int(i)) for i in order[start:start + batch_size]]
+            yield {key: np.stack([s[key] for s in samples])
+                   for key in samples[0]}

@@ -30,7 +30,9 @@ import numpy as np
 
 from .. import native
 
-__all__ = ["resize_nearest", "resize_area", "halve_lanczos", "rgb_to_yuv420"]
+__all__ = ["resize_nearest", "resize_area", "resize_linear", "halve_lanczos",
+           "rgb_to_yuv420", "rgb_to_gray", "rgb_to_hsv", "hsv_to_rgb",
+           "ellipse_kernel", "erode", "median_blur"]
 
 
 def _check(img: np.ndarray, size: Tuple[int, int]) -> Tuple[int, int]:
@@ -144,11 +146,11 @@ _COEF_SCALE = 1 << _COEF_BITS
 
 @functools.lru_cache(maxsize=64)
 def _area_up_table(src: int, dst: int):
-    """Source index and the two 11-bit weights of each output position for
+    """The two source indices and 11-bit weights of each output position for
     OpenCV's INTER_AREA upscale (linear interpolation placed by area)."""
     scale = 1.0 / (dst / src)
     inverse = dst / src
-    index = np.empty(dst, np.int64)
+    index = np.empty((dst, 2), np.int64)
     weights = np.empty((dst, 2), np.int64)
     for d in range(dst):
         s = math.floor(d * scale)
@@ -158,7 +160,7 @@ def _area_up_table(src: int, dst: int):
             s, f = src - 1, 0.0
         # cbuf[0] = 1.f - fx, in f32; saturate_cast<short>(c * 2048) rounds
         c0 = float(np.float32(1.0) - np.float32(f))
-        index[d] = s
+        index[d] = (s, min(s + 1, src - 1))
         weights[d] = (int(np.rint(np.float32(c0) * np.float32(_COEF_SCALE))),
                       int(np.rint(np.float32(f) * np.float32(_COEF_SCALE))))
     return _frozen(index, weights)
@@ -166,27 +168,67 @@ def _area_up_table(src: int, dst: int):
 
 def _area_upscale(img: np.ndarray, width: int, height: int) -> np.ndarray:
     """OpenCV's resize with INTER_AREA when a factor is below 1: linear
-    weights in 11-bit fixed point, horizontal sums in int32, then the
-    vertical step ((b0 * (S0 >> 4)) >> 16) + ((b1 * (S1 >> 4)) >> 16),
-    rounded by (+ 2) >> 2."""
+    weights placed by area."""
     src_h, src_w = img.shape[:2]
-    xi, xw = _area_up_table(src_w, width)
-    yi, yw = _area_up_table(src_h, height)
-    x1 = np.minimum(xi + 1, src_w - 1)
+    return _fixed_point_linear(img, _area_up_table(src_w, width),
+                               _area_up_table(src_h, height))
+
+
+@functools.lru_cache(maxsize=128)
+def _linear_table(src: int, dst: int, clamp: bool):
+    """The two source indices and 11-bit weights of each output position
+    for OpenCV's INTER_LINEAR: f = (float)((d + 0.5) * scale - 0.5), s =
+    floor(f). Columns (``clamp``) move s and f to the first or last source
+    pixel; rows keep s and f and read the clamped rows s and s + 1."""
+    scale = 1.0 / (dst / src)
+    index = np.empty((dst, 2), np.int64)
+    weights = np.empty((dst, 2), np.int64)
+    for d in range(dst):
+        f = np.float32((d + 0.5) * scale - 0.5)
+        s = math.floor(f)
+        f = np.float32(f - np.float32(s))
+        if clamp and s < 0:
+            s, f = 0, np.float32(0)
+        if clamp and s >= src - 1:
+            s, f = src - 1, np.float32(0)
+        index[d] = (min(max(s, 0), src - 1), min(max(s + 1, 0), src - 1))
+        weights[d] = (int(np.rint((np.float32(1.0) - f)
+                                  * np.float32(_COEF_SCALE))),
+                      int(np.rint(f * np.float32(_COEF_SCALE))))
+    return _frozen(index, weights)
+
+
+def resize_linear(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(img, size, interpolation=cv2.INTER_LINEAR)`` for an
+    upscale or a copy (no factor below 1), in OpenCV's 11-bit fixed point."""
+    img = np.asarray(img)
+    width, height = _check(img, size)
+    src_h, src_w = img.shape[:2]
+    if width < src_w or height < src_h:
+        raise ValueError(f"resize_linear takes upscales only, got "
+                         f"{src_w}x{src_h} to {width}x{height}")
+    if (width, height) == (src_w, src_h):
+        return img.copy()
+    return _fixed_point_linear(img, _linear_table(src_w, width, True),
+                               _linear_table(src_h, height, False))
+
+
+def _fixed_point_linear(img: np.ndarray, xtable, ytable) -> np.ndarray:
+    """OpenCV's linear resize of uint8 in fixed point: 11-bit weights,
+    horizontal sums in int32, then the vertical step ((b0 * (S0 >> 4)) >>
+    16) + ((b1 * (S1 >> 4)) >> 16), rounded by (+ 2) >> 2. Each table is
+    ([dst, 2] source indices, [dst, 2] weights)."""
+    (xi, xw), (yi, yw) = xtable, ytable
+    width, height = len(xi), len(yi)
     data = img.astype(np.int64)
     shape = (1, width, 1) if img.ndim == 3 else (1, width)
-    a0 = xw[:, 0].reshape(shape)
-    a1 = xw[:, 1].reshape(shape)
-    # past the last full pair of source columns OpenCV takes S[sx] * 2048
-    last = (xi + 1 >= src_w).reshape(shape)
-    horizontal = np.where(last, data[:, xi] * _COEF_SCALE,
-                          data[:, xi] * a0 + data[:, x1] * a1)
-    y1 = np.minimum(yi + 1, src_h - 1)
+    horizontal = (data[:, xi[:, 0]] * xw[:, 0].reshape(shape)
+                  + data[:, xi[:, 1]] * xw[:, 1].reshape(shape))
     bshape = (height,) + (1,) * (img.ndim - 1)
     b0 = yw[:, 0].reshape(bshape)
     b1 = yw[:, 1].reshape(bshape)
-    s0 = horizontal[yi] >> 4
-    s1 = horizontal[y1] >> 4
+    s0 = horizontal[yi[:, 0]] >> 4
+    s1 = horizontal[yi[:, 1]] >> 4
     value = ((b0 * s0) >> 16) + ((b1 * s1) >> 16)
     return np.clip((value + 2) >> 2, 0, 255).astype(np.uint8)
 
@@ -316,3 +358,204 @@ def rgb_to_yuv420(rgb: np.ndarray) -> np.ndarray:
     planes = np.concatenate([np.clip(p, 0, 255).astype(np.uint8).ravel()
                              for p in (y, u, v)])
     return planes.reshape(height * 3 // 2, width)
+
+
+# ------------------------------------------------- gray, HSV (uint8, cv2)
+
+# OpenCV 5's RGB2GRAY weights for uint8, 15-bit fixed point (OpenCV 4 used
+# 4899, 9617, 1868 in 14 bits)
+_GRAY_SHIFT = 15
+_R2Y, _G2Y, _B2Y = 9798, 19235, 3735
+
+
+def rgb_to_gray(rgb: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(rgb, cv2.COLOR_RGB2GRAY)`` for uint8 RGB [H, W, 3]:
+    (R 9798 + G 19235 + B 3735 + 2^14) >> 15."""
+    rgb = _check_rgb(rgb)
+    r, g, b = (rgb[..., c].astype(np.int32) for c in range(3))
+    return ((r * _R2Y + g * _G2Y + b * _B2Y + (1 << (_GRAY_SHIFT - 1)))
+            >> _GRAY_SHIFT).astype(np.uint8)
+
+
+def _check_rgb(rgb: np.ndarray) -> np.ndarray:
+    rgb = np.asarray(rgb)
+    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"expected uint8 [H, W, 3], got {rgb.dtype} "
+                         f"{rgb.shape}")
+    return rgb
+
+
+_HSV_SHIFT = 12
+
+
+@functools.lru_cache(maxsize=1)
+def _hsv_tables():
+    """OpenCV's RGB2HSV_b tables: sdiv[v] = round((255 << 12) / v) and
+    hdiv[d] = round((180 << 12) / (6 d)), 0 at 0."""
+    i = np.arange(256, dtype=np.float64)
+    with np.errstate(divide="ignore"):
+        sdiv = np.where(i > 0, np.rint((255 << _HSV_SHIFT) / i), 0)
+        hdiv = np.where(i > 0, np.rint((180 << _HSV_SHIFT) / (6.0 * i)), 0)
+    return _frozen(sdiv.astype(np.int64), hdiv.astype(np.int64))
+
+
+def rgb_to_hsv(rgb: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(rgb, cv2.COLOR_RGB2HSV)`` for uint8: hue in [0, 180]
+    (180 only where rounding carries it there, as OpenCV's does), S and V
+    in [0, 255], in OpenCV's 12-bit fixed point."""
+    rgb = _check_rgb(rgb)
+    sdiv, hdiv = _hsv_tables()
+    r, g, b = (rgb[..., c].astype(np.int64) for c in range(3))
+    v = np.maximum(np.maximum(r, g), b)
+    diff = v - np.minimum(np.minimum(r, g), b)
+    half = 1 << (_HSV_SHIFT - 1)
+    s = (diff * sdiv[v] + half) >> _HSV_SHIFT
+    h = np.where(v == r, g - b, np.where(v == g, b - r + 2 * diff,
+                                         r - g + 4 * diff))
+    h = (h * hdiv[diff] + half) >> _HSV_SHIFT
+    h = np.where(h < 0, h + 180, h)
+    return np.stack([np.clip(h, 0, 255), s, v], axis=-1).astype(np.uint8)
+
+
+# sectors of OpenCV's HSV2RGB: the tab entries of (b, g, r)
+_SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3],
+                     [2, 1, 0]])
+# pixels of a row OpenCV's vector HSV2RGB takes at once (4 x 8 f32 lanes)
+_HSV_BLOCK = 32
+
+
+def hsv_to_rgb(hsv: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(hsv, cv2.COLOR_HSV2RGB)`` for uint8 (hue in [0,
+    180)), through float32 as OpenCV's 8-bit conversion goes: h * 6 / 180,
+    S and V over 255, the sector table with 1 - s * h and 1 - s * (1 - h)
+    each rounded once (fused multiply-add), then each channel times 255.
+    OpenCV's vector path, which takes each row's pixels in blocks of 32,
+    truncates that to uint8; the row's last pixels, past its last whole
+    block, take the scalar path, which rounds."""
+    hsv = _check_rgb(hsv)
+    f32 = np.float32
+    h = hsv[..., 0].astype(f32) * f32(6.0 / 180.0)
+    s = hsv[..., 1].astype(f32) * f32(1.0 / 255.0)
+    v = hsv[..., 2].astype(f32) * f32(1.0 / 255.0)
+    sector = np.floor(h)
+    h = h - sector
+    sector = sector.astype(np.int64)
+    s64, h64 = s.astype(np.float64), h.astype(np.float64)
+    one = f32(1.0)
+    # a product of two f32 is exact in f64: one rounding to f32, as an FMA
+    tab = np.stack([v, v * (one - s), v * (1.0 - s64 * h64).astype(f32),
+                    v * (1.0 - s64 * (one - h).astype(np.float64)
+                         ).astype(f32)], axis=-1)
+    bgr = np.take_along_axis(tab, _SECTORS[sector], axis=-1) * f32(255.0)
+    vector = hsv.shape[1] // _HSV_BLOCK * _HSV_BLOCK
+    out = np.empty(bgr.shape, np.uint8)
+    out[:, :vector] = np.clip(np.trunc(bgr[:, :vector]), 0, 255)
+    out[:, vector:] = np.clip(np.rint(bgr[:, vector:]), 0, 255)
+    return np.ascontiguousarray(out[..., ::-1])
+
+
+# ------------------------------------------------- morphology, median
+
+def ellipse_kernel(size: int) -> np.ndarray:
+    """``cv2.getStructuringElement(cv2.MORPH_ELLIPSE, (size, size))``:
+    row i spans c -/+ dx with r = size // 2, c = size // 2 and dx =
+    saturate_cast<int>(c * sqrt((r^2 - dy^2) / r^2)), dy = i - r."""
+    if size < 1:
+        raise ValueError(f"kernel size must be positive, got {size}")
+    r = c = size // 2
+    inv_r2 = 1.0 / (r * r) if r else 0.0
+    kernel = np.zeros((size, size), np.uint8)
+    for i in range(size):
+        dy = i - r
+        if abs(dy) <= r:
+            dx = int(np.rint(c * math.sqrt((r * r - dy * dy) * inv_r2)))
+            kernel[i, max(c - dx, 0):min(c + dx + 1, size)] = 1
+    return kernel
+
+
+def _window_min(img: np.ndarray, left: int, right: int) -> np.ndarray:
+    """out[:, x] = the minimum of img[:, x + left .. x + right] over the
+    columns inside the image, by doubling windows."""
+    height, width = img.shape[:2]
+    span = right - left + 1
+    # column j of ``padded`` holds image column j + left, 255 outside
+    padded = np.full((height, width + span - 1) + img.shape[2:], 255,
+                     np.uint8)
+    lo, hi = max(0, left), min(width, width + right)
+    if hi > lo:
+        padded[:, lo - left:hi - left] = img[:, lo:hi]
+    n = padded.shape[1]
+    covered = 1
+    while covered < span:
+        step = min(covered, span - covered)
+        padded[:, :n - step] = np.minimum(padded[:, :n - step],
+                                          padded[:, step:])
+        covered += step
+    return padded[:, :width]
+
+
+def erode(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
+    """``cv2.erode(img, kernel)`` for uint8 [H, W] or [H, W, C], the anchor
+    at the kernel's centre and OpenCV's default border (pixels outside the
+    image never win the minimum). Each kernel row must be one run of ones,
+    as ``ellipse_kernel``'s are."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3):
+        raise ValueError(f"expected a uint8 [H, W] or [H, W, C] image, got "
+                         f"{img.dtype} {img.shape}")
+    kernel = np.asarray(kernel) != 0
+    kh, kw = kernel.shape
+    ay, ax = kh // 2, kw // 2
+    height = img.shape[0]
+    out = np.full(img.shape, 255, np.uint8)
+    rows_by_run = {}
+    for i in range(kh):
+        cols = np.flatnonzero(kernel[i])
+        if not len(cols):
+            continue
+        if cols[-1] - cols[0] + 1 != len(cols):
+            raise ValueError("erode takes kernels whose rows are runs")
+        run = (int(cols[0]) - ax, int(cols[-1]) - ax)
+        if run not in rows_by_run:
+            rows_by_run[run] = _window_min(img, *run)
+        shifted = rows_by_run[run]
+        dy = i - ay
+        lo, hi = max(0, -dy), min(height, height - dy)
+        if hi > lo:
+            np.minimum(out[lo:hi], shifted[lo + dy:hi + dy], out=out[lo:hi])
+    return out
+
+
+def median_blur(img: np.ndarray, ksize: int) -> np.ndarray:
+    """``cv2.medianBlur(img, ksize)`` for uint8 [H, W] or [H, W, C], ksize
+    odd (3 to 255): the exact median of each ksize x ksize window, border
+    replicated, each channel on its own. In the native library (a sliding
+    histogram) where it builds, else in numpy."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3):
+        raise ValueError(f"expected a uint8 [H, W] or [H, W, C] image, got "
+                         f"{img.dtype} {img.shape}")
+    if ksize % 2 == 0 or not 1 < ksize < 256:
+        raise ValueError(f"median ksize must be odd and in 3..255, got "
+                         f"{ksize}")
+    if native.available():
+        return native.median_u8(img, ksize)
+    return _median_numpy(img, ksize)
+
+
+def _median_numpy(img: np.ndarray, ksize: int) -> np.ndarray:
+    """The exact median by partitioning each window, a band of rows at a
+    time."""
+    r = ksize // 2
+    planes = img[..., None] if img.ndim == 2 else img
+    padded = np.pad(planes, ((r, r), (r, r), (0, 0)), mode="edge")
+    out = np.empty(planes.shape, np.uint8)
+    middle = ksize * ksize // 2
+    band = max(1, (1 << 22) // (planes.shape[1] * ksize * ksize * planes.shape[2]))
+    for y0 in range(0, planes.shape[0], band):
+        y1 = min(planes.shape[0], y0 + band)
+        windows = np.lib.stride_tricks.sliding_window_view(
+            padded[y0:y1 + 2 * r], (ksize, ksize), axis=(0, 1))
+        flat = windows.reshape(*windows.shape[:3], ksize * ksize)
+        out[y0:y1] = np.partition(flat, middle, axis=-1)[..., middle]
+    return out[..., 0] if img.ndim == 2 else out

@@ -8,15 +8,31 @@ chunks; this module does the same, so the port's artifacts and keyframes
 match the JAX package's byte for byte without OpenCV. (Under ``Z_RLE``, zlib
 writes level-flag 0 in the stream header whatever the level.)
 
-``decode_png_gray`` reads 8-bit grayscale, non-interlaced PNGs with any of
-the five row filters (another writer's artifact may use Avg or Paeth) and
-raises ``PNGFormatError`` on anything else. ``decode_png`` also reads RGB
-and RGBA (the serving surface's request bodies), dropping alpha. Images
-whose rows are all filtered Sub (what this encoder and OpenCV write) are
-undone in numpy; any other mix of filters (libpng's and Pillow's adaptive
+The decoders read every kind of the PNG standard (gray at 1, 2, 4, 8 and
+16 bits, gray+alpha, RGB and RGBA at 8 and 16 bits, palette at 1, 2, 4 and
+8 bits, Adam7 interlaced or not, any of the five row filters) and give what
+OpenCV's decoder (libpng, as OpenCV configures it) gives:
+
+  * ``decode_png_color``: ``cv2.imdecode(buf, cv2.IMREAD_COLOR)`` in RGB
+    order. 16-bit samples are stripped to their high byte, gray at 1, 2 or
+    4 bits is scaled to 0..255, a palette is looked up (``tRNS`` ignored),
+    alpha is dropped and gray is repeated into the three channels;
+  * ``decode_png_grayscale``: ``cv2.imdecode(buf, cv2.IMREAD_GRAYSCALE)``.
+    Colour goes through libpng's ``rgb_to_gray`` with OpenCV's weights
+    (0.299, 0.587) in 15-bit fixed point, (9797 R + 19234 G + 3737 B) >> 15
+    at 8 bits, and rounded at 16 bits before the high byte is kept;
+  * ``decode_png``: gray kinds as ``decode_png_grayscale``, colour kinds
+    as ``decode_png_color`` (the serving surface's request bodies);
+  * ``decode_png_gray``: gray kinds only, refusing colour (the stage
+    artifacts' relay, which never holds colour).
+
+Each raises ``PNGFormatError`` on a buffer that is not a PNG. Passes whose
+rows are all filtered Sub (what this encoder and OpenCV write) are undone
+in numpy; any other mix of filters (libpng's and Pillow's adaptive
 filtering choose Avg and Paeth for many rows) goes to the native library's
-``png_unfilter``, which releases the interpreter lock, and to a Python loop
-only where that library cannot be built.
+``png_unfilter``, which releases the interpreter lock, one Adam7 pass at a
+time, and to a Python loop only where that library cannot be built. JPEG
+and the other formats are not decoded here: only OpenCV reads them.
 """
 
 from __future__ import annotations
@@ -32,7 +48,16 @@ from .. import native
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 IDAT_CHUNK = 8192
 _COLOR_TYPES = {1: 0, 3: 2}  # channels -> PNG colour type (gray, RGB)
-_CHANNELS = {0: 1, 2: 3, 6: 4}  # colour type -> bytes a pixel (8-bit)
+# colour type -> (samples a pixel, the bit depths the standard allows)
+_KINDS = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
+          4: (2, (8, 16)), 6: (4, (8, 16))}
+_GRAY_KINDS = (0, 4)
+# (x0, y0, dx, dy) of the seven Adam7 passes
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+# libpng's rgb_to_gray weights for OpenCV's (0.299, 0.587): 15-bit fixed
+# point, blue the rest of 32768
+_GRAY_R, _GRAY_G, _GRAY_B = 9797, 19234, 3737
 # libpng's default zlib memLevel
 _MEM_LEVEL = 8
 # the decoders' largest image, OpenCV's default (CV_IO_MAX_IMAGE_PIXELS)
@@ -128,31 +153,30 @@ def encode_png(img: np.ndarray) -> bytes:
     return b"".join(parts)
 
 
-def _unfilter(raw: np.ndarray, height: int, width: int,
+def _unfilter(raw: np.ndarray, height: int, stride: int,
               bpp: int = 1) -> np.ndarray:
-    """Undo the per-row filters of 8-bit scanlines of ``bpp`` bytes a pixel;
-    returns the rows as uint8 [height, width * bpp]."""
-    stride = width * bpp
+    """Undo the per-row filters of ``height`` scanlines of ``stride`` bytes
+    (``bpp`` bytes a pixel, at least 1); returns uint8 [height, stride]."""
     rows = raw.reshape(height, stride + 1)
     kinds = rows[:, 0]
     if (kinds == 1).all():  # what OpenCV writes: one cumsum for all rows
-        return np.cumsum(rows[:, 1:].reshape(height, width, bpp), axis=1,
-                         dtype=np.uint8).reshape(height, stride)
+        return np.cumsum(rows[:, 1:].reshape(height, stride // bpp, bpp),
+                         axis=1, dtype=np.uint8).reshape(height, stride)
     if native.available():
         out, bad = native.png_unfilter(rows, height, stride, bpp)
         if bad >= 0:
             raise PNGFormatError(f"row {bad}: unknown PNG filter type "
                                  f"{int(kinds[bad])}")
         return out
-    return _unfilter_rows(rows, height, width, bpp)
+    return _unfilter_rows(rows, height, stride, bpp)
 
 
-def _unfilter_rows(rows: np.ndarray, height: int, width: int,
+def _unfilter_rows(rows: np.ndarray, height: int, stride: int,
                    bpp: int) -> np.ndarray:
     """``_unfilter`` a row at a time in Python and numpy, where the native
     library is unavailable: None, Sub and Up vectorised, Avg and Paeth a
     byte at a time (slow on large images)."""
-    stride = width * bpp
+    width = stride // bpp
     out = np.empty((height, stride), np.uint8)
     prior = np.zeros(stride, np.uint8)
     for y in range(height):
@@ -191,14 +215,15 @@ def _unfilter_rows(rows: np.ndarray, height: int, width: int,
 
 
 def _read_chunks(buf: Union[bytes, bytearray, memoryview, np.ndarray]):
-    """(IHDR fields, concatenated IDAT bytes) of a PNG buffer, CRCs
-    checked."""
+    """(IHDR fields, concatenated IDAT bytes, PLTE bytes or None) of a PNG
+    buffer, CRCs checked."""
     data = (np.ascontiguousarray(buf, dtype=np.uint8).tobytes()
             if isinstance(buf, np.ndarray) else bytes(buf))
     if not data.startswith(SIGNATURE):
         raise PNGFormatError("not a PNG: bad signature")
     pos = len(SIGNATURE)
     header = None
+    palette = None
     idat = []
     while True:
         if pos + 8 > len(data):
@@ -220,32 +245,65 @@ def _read_chunks(buf: Union[bytes, bytearray, memoryview, np.ndarray]):
         elif kind == b"IEND":
             break
         elif kind == b"PLTE":
-            # a palette image is refused by its colour type; in RGB and
-            # RGBA images PLTE is only a suggested palette
-            continue
+            # in RGB and RGBA images only a suggested palette
+            palette = body
         elif kind[:1].isupper():
             raise PNGFormatError(f"unsupported critical PNG chunk {kind!r}")
     if header is None:
         raise PNGFormatError("PNG has no IHDR chunk")
-    return header, b"".join(idat)
+    return header, b"".join(idat), palette
 
 
-def _decode(buf, color_types) -> np.ndarray:
-    """Rows of an 8-bit, non-interlaced PNG of one of ``color_types`` as
-    uint8 [H, W, channels]."""
-    header, idat = _read_chunks(buf)
+def _pass_sizes(width: int, height: int, interlace: int):
+    """(x0, y0, dx, dy, pass width, pass height) of each non-empty pass:
+    the whole image, or the Adam7 passes."""
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    for x0, y0, dx, dy in passes:
+        w, h = -(-(width - x0) // dx), -(-(height - y0) // dy)
+        if w > 0 and h > 0:
+            yield x0, y0, dx, dy, w, h
+
+
+def _unpack(rows: np.ndarray, width: int, channels: int,
+            depth: int) -> np.ndarray:
+    """Unfiltered scanlines -> samples [h, width, channels]: uint16 at 16
+    bits (big endian in the file), else uint8 (sub-byte samples unpacked,
+    most significant bits first, not scaled)."""
+    height = rows.shape[0]
+    count = width * channels
+    if depth == 16:
+        samples = rows.view(">u2").astype(np.uint16)
+    elif depth == 8:
+        samples = rows
+    else:
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        samples = ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+                   ).reshape(height, -1)
+    return samples[:, :count].reshape(height, width, channels)
+
+
+def _samples(buf, gray_only: bool = False):
+    """Every pixel of a PNG of any standard kind: (samples [H, W, channels]
+    uint8, or uint16 at 16 bits; colour type; bit depth; palette [256, 3]
+    uint8 or None). ``gray_only`` refuses the colour kinds."""
+    header, idat, plte = _read_chunks(buf)
     width, height, depth, color, compression, filter_method, interlace = header
-    if depth != 8 or color not in color_types:
-        raise PNGFormatError(
-            f"only 8-bit {' / '.join(color_types.values())} PNGs are "
-            f"supported (bit depth {depth}, colour type {color})")
-    if compression or filter_method or interlace:
-        raise PNGFormatError("only non-interlaced PNGs with the standard "
-                             "compression and filter methods are supported")
+    if color not in _KINDS or depth not in _KINDS[color][1]:
+        raise PNGFormatError(f"not a valid PNG: bit depth {depth} with "
+                             f"colour type {color}")
+    if gray_only and color not in _GRAY_KINDS:
+        raise PNGFormatError(f"expected a grayscale PNG, got colour type "
+                             f"{color}")
+    if compression or filter_method or interlace not in (0, 1):
+        raise PNGFormatError("unknown PNG compression, filter or interlace "
+                             "method")
     if width == 0 or height == 0:
         raise PNGFormatError("PNG has an empty image")
-    bpp = _CHANNELS[color]
-    expected = height * (width * bpp + 1)
+    channels = _KINDS[color][0]
+    bits = depth * channels
+    bpp = max(1, bits // 8)
+    passes = list(_pass_sizes(width, height, interlace))
+    expected = sum(h * (-(-w * bits // 8) + 1) for *_, w, h in passes)
     if width * height > MAX_PIXELS or expected > _DEFLATE_RATIO * len(idat):
         # a header no image data of this size can fill: refused before any
         # buffer is allocated for it
@@ -262,22 +320,87 @@ def _decode(buf, color_types) -> np.ndarray:
     if len(raw) != expected:
         raise PNGFormatError(f"PNG image data holds {len(raw)} bytes, "
                              f"expected {expected}")
-    rows = _unfilter(np.frombuffer(raw, np.uint8), height, width, bpp)
-    return rows.reshape(height, width, bpp)
+    raw = np.frombuffer(raw, np.uint8)
+    samples = None
+    start = 0
+    for x0, y0, dx, dy, w, h in passes:
+        stride = -(-w * bits // 8)
+        rows = _unfilter(raw[start:start + h * (stride + 1)], h, stride, bpp)
+        start += h * (stride + 1)
+        part = _unpack(rows, w, channels, depth)
+        if not interlace:
+            samples = part
+            break
+        if samples is None:
+            samples = np.empty((height, width, channels), part.dtype)
+        samples[y0::dy, x0::dx] = part
+    palette = None
+    if color == 3:
+        if plte is None or len(plte) % 3 or not 0 < len(plte) <= 768:
+            raise PNGFormatError("palette PNG without a valid PLTE chunk")
+        # indices past the palette read black, as libpng pads it
+        palette = np.zeros((256, 3), np.uint8)
+        palette[:len(plte) // 3] = np.frombuffer(plte, np.uint8).reshape(-1, 3)
+    return samples, color, depth, palette
+
+
+def _to_8bit(samples: np.ndarray, depth: int) -> np.ndarray:
+    """Gray or colour samples as 8 bits: the high byte of 16 (libpng's
+    strip), 1, 2 and 4 bits scaled to 0..255."""
+    if depth == 16:
+        return (samples >> 8).astype(np.uint8)
+    if depth < 8:
+        return samples * np.uint8(255 // ((1 << depth) - 1))
+    return samples
+
+
+def _rgb(samples, color, depth, palette) -> np.ndarray:
+    if color == 3:
+        return palette[samples[:, :, 0]]
+    if color in _GRAY_KINDS:
+        gray = _to_8bit(samples[:, :, 0], depth)
+        return np.repeat(gray[:, :, None], 3, axis=2)
+    return np.ascontiguousarray(_to_8bit(samples[:, :, :3], depth))
+
+
+def _gray(samples, color, depth, palette) -> np.ndarray:
+    if color in _GRAY_KINDS:
+        return np.ascontiguousarray(_to_8bit(samples[:, :, 0], depth))
+    rgb = (palette[samples[:, :, 0]] if color == 3 else samples[:, :, :3]
+           ).astype(np.int64)
+    weighted = (_GRAY_R * rgb[:, :, 0] + _GRAY_G * rgb[:, :, 1]
+                + _GRAY_B * rgb[:, :, 2])
+    if depth == 16:
+        return (((weighted + (1 << 14)) >> 15) >> 8).astype(np.uint8)
+    return (weighted >> 15).astype(np.uint8)
+
+
+def decode_png_color(buf: Union[bytes, bytearray, memoryview, np.ndarray]
+                     ) -> np.ndarray:
+    """Decode a PNG of any kind into uint8 RGB [H, W, 3], equal to
+    ``cv2.imdecode(buf, cv2.IMREAD_COLOR)[:, :, ::-1]``."""
+    return _rgb(*_samples(buf))
+
+
+def decode_png_grayscale(buf: Union[bytes, bytearray, memoryview, np.ndarray]
+                         ) -> np.ndarray:
+    """Decode a PNG of any kind into uint8 [H, W], equal to
+    ``cv2.imdecode(buf, cv2.IMREAD_GRAYSCALE)``."""
+    return _gray(*_samples(buf))
 
 
 def decode_png_gray(buf: Union[bytes, bytearray, memoryview, np.ndarray]
                     ) -> np.ndarray:
-    """Decode an 8-bit grayscale, non-interlaced PNG into uint8 [H, W]."""
-    return _decode(buf, {0: "grayscale"})[:, :, 0]
+    """Decode a grayscale PNG (gray or gray+alpha, any bit depth) into
+    uint8 [H, W]; a colour PNG is refused, not converted."""
+    return _gray(*_samples(buf, gray_only=True))
 
 
 def decode_png(buf: Union[bytes, bytearray, memoryview, np.ndarray]
                ) -> np.ndarray:
-    """Decode an 8-bit, non-interlaced grayscale, RGB or RGBA PNG (colour
-    types 0, 2, 6) into uint8 gray [H, W] or RGB [H, W, 3]; alpha is
-    dropped. Raises ``PNGFormatError`` on anything else."""
-    pixels = _decode(buf, {0: "grayscale", 2: "RGB", 6: "RGBA"})
-    if pixels.shape[2] == 1:
-        return pixels[:, :, 0]
-    return np.ascontiguousarray(pixels[:, :, :3])
+    """Decode a PNG of any kind into uint8 gray [H, W] (gray kinds) or RGB
+    [H, W, 3] (RGB, RGBA and palette kinds; alpha dropped)."""
+    decoded = _samples(buf)
+    if decoded[1] in _GRAY_KINDS:
+        return _gray(*decoded)
+    return _rgb(*decoded)

@@ -528,3 +528,163 @@ def test_backend_probe_and_bounded_fetch_on_the_card(cuda):
     tensor = torch.arange(12, dtype=torch.uint8, device=cuda).reshape(3, 4)
     np.testing.assert_array_equal(binarizer._fetch(tensor),
                                   np.arange(12, dtype=np.uint8).reshape(3, 4))
+
+
+# --- training on the card: K2 stays out of every forward that carries
+# gradients, its packs follow in-place updates, and a run_phase writes a
+# .msgpack that reads back equal
+
+def _training_config():
+    from lecturemath_tpu_torch.models.fcn_lecturenet import FCNConfig
+
+    return FCNConfig(down_filters=(8, 8, 16, 16, 32), mid_filters=32,
+                     upsample_filters=(8, 8, 16, 16, 32),
+                     up_filters=(8, 8, 16, 16, 32), pixel_features=(32, 16),
+                     kernel_size=3, pixel_kernel_size=7)
+
+
+def _training_model(compute_dtype=None):
+    from lecturemath_tpu_torch.models.fcn_lecturenet import (FCNLectureNet,
+                                                             init_weights)
+
+    return init_weights(FCNLectureNet(_training_config(),
+                                      compute_dtype=compute_dtype),
+                        torch.Generator().manual_seed(0))
+
+
+def _training_batch(seed=0, size=64):
+    rng = np.random.default_rng(seed)
+    return {"image": rng.uniform(-1, 1, (2, 3, size, size)),
+            "target": rng.random((2, 1, size, size)) < 0.5,
+            "text_mask": rng.random((2, 1, size, size)) < 0.5,
+            "median": rng.uniform(-1, 1, (2, 3, size, size))}
+
+
+def test_conv_same_nhwc_raises_under_grad(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x = _bf16_nhwc((1, 3, 16, 24), gen, cuda)
+    weight = (torch.randn(4, 3, 7, 7, device=cuda, generator=gen)
+              * 0.1).requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        conv_same_nhwc(x, weight)
+    with pytest.raises(RuntimeError, match="no backward"):
+        conv_same_nhwc(x.clone().requires_grad_(), weight.detach())
+    with torch.no_grad():
+        assert conv_same_nhwc(x, weight).shape == (1, 4, 16, 24)
+
+
+def test_training_head_gradients_equal_a_conv2d_model(cuda):
+    """A text-detector step's head gradients on the card equal those of the
+    same model on the CPU, whose heads are F.conv2d, in fp32; K2 is not
+    launched."""
+    from lecturemath_tpu_torch.train.losses import phase_losses
+
+    batch = {key: torch.from_numpy(np.asarray(value, np.float32))
+             for key, value in _training_batch().items()}
+    grads = {}
+    for key, device in (("cpu", "cpu"), ("card", cuda)):
+        model = _training_model().to(device,
+                                     memory_format=torch.channels_last)
+        launches = conv_same_nhwc.launches
+        on_device = {key: value.to(device) for key, value in batch.items()}
+        outputs = model(on_device["image"].contiguous(
+            memory_format=torch.channels_last))
+        sum(phase_losses("text_detector", outputs,
+                         on_device).values()).backward()
+        assert conv_same_nhwc.launches == launches
+        grads[key] = {name: param.grad.cpu() for name, param
+                      in model.named_parameters()}
+    heads = [name for name in grads["cpu"] if name.startswith(
+        ("conv_pixels_", "conv_out.", "conv_text_mask_out."))]
+    assert len(heads) == 16
+    scale = max(grads["cpu"][name].abs().max().item() for name in heads)
+    for name in heads:
+        if name.endswith(".0.weight"):
+            assert grads["cpu"][name].abs().max() > 0, name
+        torch.testing.assert_close(grads["card"][name], grads["cpu"][name],
+                                   rtol=1e-4, atol=1e-5 * scale)
+
+
+def test_head_packs_refresh_after_optimizer_step(cuda):
+    from lecturemath_tpu_torch.models.fcn_lecturenet import FCNLectureNet
+    from lecturemath_tpu_torch.ops.conv7 import n_tiles, pack_weights
+
+    model = _training_model(torch.bfloat16).to(
+        cuda, memory_format=torch.channels_last)
+    x = torch.from_numpy(_training_batch()["image"].astype(np.float32)).to(
+        cuda).contiguous(memory_format=torch.channels_last)
+    optimizer = torch.optim.SGD(model.parameters(), lr=0.5)
+
+    def infer(net):
+        net.eval()
+        with torch.no_grad():
+            return net(x)[0]
+
+    infer(model)
+    before = {name: pack[1][0].clone()
+              for name, pack in model._head_packs.items()}
+    model.train()
+    model(x)[0].float().square().mean().backward()
+    optimizer.step()
+    launches = conv_same_nhwc.launches
+    after = infer(model)
+    assert conv_same_nhwc.launches == launches + 4
+    for name, (c1, c2) in model.head_inputs().items():
+        weight = getattr(model, name)[0].weight
+        used = model._head_packs[name][1][0]
+        assert torch.equal(used, pack_weights(weight, c1, c2,
+                                              n_tiles(weight.shape[0])))
+        assert not torch.equal(used, before[name]), name
+    fresh = FCNLectureNet(_training_config(), compute_dtype=torch.bfloat16)
+    fresh.load_state_dict(model.state_dict())
+    expected = infer(fresh.to(cuda, memory_format=torch.channels_last))
+    torch.testing.assert_close(after, expected, rtol=0,
+                               atol=2.0 ** -8 * expected.abs().max().item())
+
+
+def test_run_phase_on_the_card_writes_a_msgpack_the_cpu_reads(cuda,
+                                                             tmp_path):
+    from lecturemath_tpu_torch.core.config import Config
+    from lecturemath_tpu_torch.models.convert import load_checkpoint
+    from lecturemath_tpu_torch.train.dataset import LectureNetDataset
+    from lecturemath_tpu_torch.train.trainer import run_phase
+    from lecturemath_tpu_torch.utils.png import encode_png
+
+    rng = np.random.default_rng(3)
+    images = []
+    for k in range(4):
+        path = tmp_path / f"{k}.png"
+        path.write_bytes(encode_png(rng.integers(0, 256, (48, 64, 3),
+                                                 np.uint8)))
+        images.append(str(path))
+    cfg = _training_config()
+    widths = {"DOWN_CONV_FILTERS": cfg.down_filters,
+              "UPSAMPLE_FILTERS": cfg.upsample_filters,
+              "UP_CONV_FILTERS": cfg.up_filters}
+    lines = [f"FCN_BINARIZER_NET_{key}_{i} = {v}"
+             for key, values in widths.items()
+             for i, v in enumerate(values, 1)]
+    out = tmp_path / "rec.msgpack"
+    lines += ["FCN_BINARIZER_NET_MIDDLE_CONV_FILTERS_MIDDLE = 32",
+              "FCN_BINARIZER_NET_PIXEL_FEATURES_1 = 32",
+              "FCN_BINARIZER_NET_PIXEL_FEATURES_2 = 16",
+              "FCN_BINARIZER_NET_PIXEL_KERNEL_SIZE = 7",
+              "FCN_BINARIZER_PRETRAIN_REC_EPOCHS = 2",
+              "FCN_BINARIZER_PRETRAIN_BATCH_SIZE = 2",
+              f"FCN_BINARIZER_PRETRAIN_RECONSTRUCTION_OUTPUT = {out}"]
+    conf = tmp_path / "train.conf"
+    conf.write_text("\n".join(lines))
+    config = Config.from_file(str(conf))
+    dataset = LectureNetDataset(images, None, reconstruction_mode=True,
+                                crop_size=(32, 32), reconstruct_median=True,
+                                reconstruct_median_k=5)
+    assert run_phase(config, "reconstruction", dataset, verbose=False,
+                     device=cuda) == str(out)
+    # the resume file holds the same epoch's model as a torch state dict
+    trained = torch.load(f"{out}.resume", map_location="cpu",
+                         weights_only=True)["model"]
+    read = load_checkpoint(str(out))
+    assert set(read) == set(trained)
+    for key, value in read.items():
+        if not key.endswith("num_batches_tracked"):  # not in the format
+            assert torch.equal(value, trained[key]), key

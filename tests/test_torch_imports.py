@@ -140,6 +140,22 @@ def test_serving_slice_modules_are_checked(module):
     assert module in [_module_name(p) for p in _port_files()]
 
 
+TRAINING_MODULES = [
+    "lecturemath_tpu_torch.parallel.mesh",
+    *[f"lecturemath_tpu_torch.train.{name}" for name in (
+        "augment", "dataset", "losses", "prefetch", "trainer")],
+    *[f"lecturemath_tpu_torch.cli.{name}" for name in (
+        "train_reconstruction", "train_text_detector", "train_binarizer")],
+]
+
+
+@pytest.mark.parametrize("module", TRAINING_MODULES)
+def test_training_slice_modules_are_checked(module):
+    """The training curriculum, its data path, the mesh requests and the
+    three training CLIs are among the files the checks above walk."""
+    assert module in [_module_name(p) for p in _port_files()]
+
+
 _NO_OPENCV = r"""
 import os, sys
 BANNED = ("cv2", "PIL")
