@@ -70,10 +70,25 @@ then, in phases:
      under torch.profiler; no K2 launch in any training forward; then the
      trained checkpoint through Binarizer.from_config, K2 and K1 on packs
      of its weights, within the 1% flip rate of plain f32, and an
-     optimizer.step() on a live model after which K2 runs on fresh packs.
+     optimizer.step() on a live model after which K2 runs on fresh packs;
+  9. the evaluation path at the same widths on a synthetic ground-truth
+     tree (GT binaries by the threshold heads' luminance rule, polygon
+     video objects): the phase-4 lecture at 960x540 and a second lecture
+     of 16 keyframes at 1920x1080. Through their entry points:
+     eval.keyframe_bin.main (the binarizer-quality protocol), the
+     eval_summaries CLI over the staged phase's summary, the eval_segments
+     CLI, a self-evaluation (the GT scored as its own summary: recall =
+     precision = 1.0 at every min R/P) and the eval_text_detector CLI on 16
+     PNG image/mask pairs at 640x480; each one's wall time, the protocol's
+     host seconds by step and the binarizer's keyframes a second (CUDA
+     events), timed after that run; the binaries keyframe_bin.main saved
+     for every keyframe (bf16 kernels) within the 1% flip rate of plain f32
+     on the card; every metric that main returned finite and in [0, 1]
+     (the board variants of the pixel metrics may pass 1 by their
+     definition); K2 launched on the path.
 
-The launch counts are set to 0 just before each of the four paths (phases
-4, 6, 7 and 8) and read just after. Serving launches are graph replays times
+The launch counts are set to 0 just before each of the five paths (phases
+4, 6, 7, 8 and 9) and read just after. Serving launches are graph replays times
 the launches each graph holds, counted by the service: the wrappers count
 once when a graph is captured. It prints one JSON line of kernel numbers,
 then as its last line ``{"ok": true, "device": {...}}``, and exits 0 only
@@ -2237,6 +2252,432 @@ def phase_training(counters):
     return launches, {"steps": timings, "flip_rate": flip_rate}
 
 
+# ---------------------------------------------------------------- phase 9
+
+# the evaluation path's GT tree (the AccessMath layout under its own
+# annotations folder): the phase-4 lecture at 960x540 with a GT keyframe at
+# the end of each era, scored against the staged phase's summary, and a
+# second lecture of 16 keyframes at 1920x1080, AccessMath's keyframe size,
+# for the binarizer-quality protocol; 16 image/mask pairs at 640x480 for
+# the text-detector evaluation
+EVAL_DB_XML = """<AccessMath>
+  <DataBase>
+    <Name>SmokeDB</Name>
+    <OutputPaths>
+      <Temporal>temporal</Temporal><Images>images</Images>
+      <Videos>videos</Videos><Annotations>eval_annotations</Annotations>
+      <Summaries>summaries</Summaries>
+    </OutputPaths>
+    <Datasets>
+      <Training><LectureTitle>smoke01</LectureTitle>
+        <LectureTitle>smoke02</LectureTitle></Training>
+      <Testing><LectureTitle>smoke01</LectureTitle></Testing>
+    </Datasets>
+    <Lectures>
+      <Lecture>
+        <Id>smoke01</Id><Title>smoke01</Title><Parameters></Parameters>
+        <Videos><Main><Video><Path>smoke01.mp4</Path></Video></Main></Videos>
+      </Lecture>
+      <Lecture>
+        <Id>smoke02</Id><Title>smoke02</Title><Parameters></Parameters>
+        <Videos><Main><Video><Path>smoke02.mp4</Path></Video></Main></Videos>
+      </Lecture>
+    </Lectures>
+  </DataBase>
+</AccessMath>
+"""
+EVAL_CONFIG = """VIDEO_SEGMENTATION_OUTPUT = tempo_intervals_
+BINARIZATION_OUTPUT = tempo_binary_
+FCN_BINARIZER_SAVE_BINARY = 1
+FCN_BINARIZER_SAVE_BINARY_PATH = {ws}/eval/saved
+FCN_BINARIZER_PRETRAIN_EVAL_IMAGES_DIR = {ws}/eval/td/images
+FCN_BINARIZER_PRETRAIN_EVAL_MASKS_DIR = {ws}/eval/td/masks
+"""
+HD_KEYFRAMES = 16
+HD_HEIGHT, HD_WIDTH = 1080, 1920
+TD_PAIRS = 16
+TD_HEIGHT, TD_WIDTH = 480, 640
+# the video objects of every GT keyframe, in 960x540 coordinates (doubled
+# at 1920x1080): a non-convex speaker polygon past the frame's left edge,
+# with fractional vertices, and a board box in the X/Y/W/H form
+SPEAKER = [[-40.5, 120.2], [180.7, 60.0], [130.0, 260.0], [260.3, 500.9],
+           [20.0, 420.5]]
+BOARD = (500.0, 40.0, 400.5, 300.25)
+# the threshold heads' luminance rule (threshold_binarizer_variables)
+GT_GRAY, GT_SHARPNESS = 130.0, 4.0
+
+
+def threshold_ink(rgb):
+    """The ink the threshold heads find, in exact arithmetic: sigmoid(z) *
+    255 < 128 with z = sharpness * (sum of x - 3 t), x = v / 127.5 - 1."""
+    import numpy as np
+
+    x = rgb.astype(np.float64) / 127.5 - 1.0
+    z = GT_SHARPNESS * (x.sum(axis=-1) - 3 * (GT_GRAY / 127.5 - 1.0))
+    return z < np.log(128.0 / 127.0)
+
+
+def write_gt_lecture(lecture, keyframes, segments, scale):
+    """One lecture's GT tree: keyframes (index, RGB), segments, the video
+    objects scaled by ``scale``, a full-frame portion a keyframe, and
+    unique-CC groups chained by the annotation tooling; returns the GT
+    binaries (ink = 0)."""
+    import numpy as np
+
+    from lecturemath_tpu_torch.eval.aligner import build_unique_cc_groups
+    from lecturemath_tpu_torch.eval.annotation import (KeyframeAnnotation,
+                                                       UniqueCCGroup)
+    from lecturemath_tpu_torch.utils.png import encode_png
+
+    prefix = os.path.join(WORKSPACE, "output", "eval_annotations",
+                          f"SmokeDB_{lecture}")
+    for sub in ("keyframes", "binary"):
+        os.makedirs(os.path.join(prefix, sub), exist_ok=True)
+    speaker = "".join(f"<Point><X>{x * scale}</X><Y>{y * scale}</Y></Point>"
+                      for x, y in SPEAKER)
+    x, y, w, h = (v * scale for v in BOARD)
+    objects = ("<VideoObjects><VideoObject><Name>speaker</Name><Shape>2"
+               f"</Shape><Polygon>{speaker}</Polygon></VideoObject>"
+               f"<VideoObject><Name>board</Name><X>{x}</X><Y>{y}</Y>"
+               f"<W>{w}</W><H>{h}</H></VideoObject></VideoObjects>")
+    xml = [f"<Annotations><Database>SmokeDB</Database><Lecture>{lecture}"
+           f"</Lecture><Filename>x</Filename><VideoFiles><VideoFile>"
+           f"{lecture}.mp4</VideoFile></VideoFiles><VideoSegments>"]
+    xml += [f"<VideoSegment><Start>{s}</Start><End>{e}</End></VideoSegment>"
+            for s, e in segments]
+    xml.append("</VideoSegments><VideoKeyFrames>")
+    portions = ["<Annotations><KeyFrames>"]
+    binaries = []
+    for idx, rgb in keyframes:
+        binary = np.where(threshold_ink(rgb), 0, 255).astype(np.uint8)
+        binaries.append(binary)
+        three = np.repeat(binary[:, :, None], 3, axis=2)
+        for path, image in (
+                (os.path.join(prefix, "keyframes", f"{idx}.png"),
+                 rgb[:, :, ::-1]),
+                (os.path.join(prefix, "binary", f"{idx}.png"), three),
+                (os.path.join(prefix, "portions", f"frame_{idx}", "0.png"),
+                 three)):
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path, "wb") as f:
+                f.write(encode_png(image))
+        xml.append(f"<VideoKeyFrame><Index>{idx}</Index><AbsTime>"
+                   f"{idx * 1000.0}</AbsTime>{objects}</VideoKeyFrame>")
+        portions.append(
+            f"<KeyFrame><Index>{idx}</Index><Portions><KeyFramePortion>"
+            f"<X>0</X><Y>0</Y><W>{rgb.shape[1]}</W><H>{rgb.shape[0]}</H>"
+            f"<Dark>0</Dark></KeyFramePortion></Portions></KeyFrame>")
+    xml.append("</VideoKeyFrames></Annotations>")
+    portions.append("</KeyFrames></Annotations>")
+    with open(os.path.join(prefix, "segments.xml"), "w") as f:
+        f.write("\n".join(xml) + "\n")
+    with open(os.path.join(prefix, "portions.xml"), "w") as f:
+        f.write("\n".join(portions) + "\n")
+
+    gt, gt_segments = KeyframeAnnotation.load_exported_keyframes(
+        os.path.join(prefix, "segments.xml"),
+        os.path.join(prefix, "keyframes") + "/", True)
+    for kf, binary in zip(gt, binaries):
+        kf.binary_image = np.repeat(binary[:, :, None], 3, axis=2)
+        kf.update_binary_cc(False)
+    combined = KeyframeAnnotation.combine_per_segment(gt, gt_segments, False)
+    groups, _ = build_unique_cc_groups(combined, local_window=3,
+                                       min_recall=0.8, min_precision=0.8)
+    with open(os.path.join(prefix, "unique_ccs.xml"), "w") as f:
+        f.write(UniqueCCGroup.groups_to_xml(combined, groups))
+    return binaries
+
+
+def make_eval_tree():
+    """The GT tree of both lectures, the GT of smoke01 exported as a
+    summary of itself (baseline prefix ``self_``), the LectureAnnotation
+    XML eval_segments reads, the text-detector pairs and the config;
+    returns (config path, {lecture: keyframe count})."""
+    import numpy as np
+
+    from lecturemath_tpu_torch.eval.lecture_annotation import \
+        LectureAnnotation
+    from lecturemath_tpu_torch.pipeline.keyframes import export_summary
+    from lecturemath_tpu_torch.utils.png import encode_png
+    from lecturemath_tpu_torch.utils.synthetic import \
+        SyntheticRGBLectureSource
+
+    source = make_source()
+    boundary = source.erase_times[0]
+    picks = [boundary - 1, N_FRAMES - 1]
+    segments = [(0, boundary - 1), (boundary, N_FRAMES - 1)]
+    binaries = write_gt_lecture(
+        "smoke01", [(t, source.rgb_frame(t).copy()) for t in picks],
+        segments, 1.0)
+    export_summary(os.path.join(WORKSPACE, "output", "summaries",
+                                "self_SmokeDB_smoke01"),
+                   "SmokeDB", "smoke01", ["smoke01.mp4"], segments,
+                   [(s * 1000.0, e * 1000.0) for s, e in segments], picks,
+                   [t * 1000.0 for t in picks],
+                   [np.repeat(b[:, :, None], 3, axis=2) for b in binaries])
+    annotation = LectureAnnotation("SmokeDB", "smoke01", "smoke01.xml",
+                                   ["smoke01.mp4"], total_frames=N_FRAMES)
+    annotation.video_segments = [boundary]
+    annotation.video_segment_keyframes = picks
+    annotation.save(os.path.join(WORKSPACE, "output", "eval_annotations",
+                                 "SmokeDB_smoke01.xml"))
+
+    hd = SyntheticRGBLectureSource(
+        seed=1, n_frames=HD_KEYFRAMES * 15, height=HD_HEIGHT, width=HD_WIDTH,
+        n_boards=2, glyphs_per_board=60, glyph_size=(80, 120))
+    hd_picks = [15 * k + 14 for k in range(HD_KEYFRAMES)]
+    write_gt_lecture("smoke02", [(t, hd.rgb_frame(t).copy())
+                                 for t in hd_picks],
+                     [(15 * k, 15 * k + 14) for k in range(HD_KEYFRAMES)],
+                     HD_HEIGHT / HEIGHT)
+
+    td = SyntheticRGBLectureSource(seed=2, n_frames=TD_PAIRS * 10,
+                                   height=TD_HEIGHT, width=TD_WIDTH,
+                                   n_boards=2, glyphs_per_board=30,
+                                   glyph_size=(30, 45))
+    for k in range(TD_PAIRS):
+        t = 10 * k + 9
+        for sub, image in (("images", td.rgb_frame(t)[:, :, ::-1]),
+                           ("masks", td.binary_frame(t))):
+            path = os.path.join(WORKSPACE, "eval", "td", sub, f"{k:02d}.png")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path, "wb") as f:
+                f.write(encode_png(image))
+
+    with open(os.path.join(WORKSPACE, "eval", "db.xml"), "w") as f:
+        f.write(EVAL_DB_XML)
+    conf = os.path.join(WORKSPACE, "eval", "eval.conf")
+    with open(conf, "w") as f:
+        f.write(CONFIG.format(ws=WORKSPACE).replace(
+            f"{WORKSPACE}/db.xml", f"{WORKSPACE}/eval/db.xml")
+            + EVAL_CONFIG.format(ws=WORKSPACE))
+    return conf, {"smoke01": len(picks), "smoke02": HD_KEYFRAMES}
+
+
+def run_eval_cli(name, main, argv):
+    """``main(argv)`` with its stdout logged; returns (what main returned,
+    stdout, wall s)."""
+    import contextlib
+    import io
+
+    import torch
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    text = out.getvalue()
+    for line in text.splitlines():
+        if line.strip() and not line.startswith("Processing:"):
+            log(f"  {line}")
+    log(f"{name}: {wall:.3f} s wall")
+    return result, text, wall
+
+
+def check_metrics(name, values):
+    """Every metric finite and in [0, 1], except the board variants of the
+    pixel metrics: the JAX package divides the matched ink (the objects'
+    included) by the summary ink off the objects, so they pass 1 where an
+    object covers matched ink."""
+    import math
+
+    for key, value in values.items():
+        if not math.isfinite(value) or value < 0:
+            raise AssertionError(f"{name}: {key} = {value}")
+        if value > 1 and not key.startswith("board_"):
+            raise AssertionError(f"{name}: {key} = {value} > 1")
+
+
+def summary_numbers(metrics):
+    """{min R/P: (recall, precision)} of the 'all' size range."""
+    return {f"{e['min_cc_recall']:.2f}/{e['min_cc_precision']:.2f}":
+            (e["recall_metrics"]["recall"],
+             e["precision_metrics"]["precision"]) for e in metrics["all"]}
+
+
+def eval_breakdown(conf, model):
+    """Timing only, after the entry point's run: the keyframe-bin protocol
+    step by step (each step the module's own function, as
+    evaluate_keyframe_binarization runs them), host seconds a step, and the
+    binarizer's keyframes a second (CUDA events around the forward of one
+    batch a resolution). Then the entry point's own saved binaries of every
+    keyframe against the plain f32 model's on the card, gated. Returns
+    (flip rate, keyframes/s by size, host s by step)."""
+    import numpy as np
+    import torch
+
+    from lecturemath_tpu_torch.core.config import Config
+    from lecturemath_tpu_torch.core.metadata import MetaDataDB
+    from lecturemath_tpu_torch.eval.annotation import KeyframeAnnotation
+    from lecturemath_tpu_torch.eval.evaluator import Evaluator
+    from lecturemath_tpu_torch.eval.keyframe_bin import (
+        KEYFRAME_BIN_PARAMS, binarize_keyframes)
+    from lecturemath_tpu_torch.eval.summary_eval import \
+        load_dataset_keyframes
+    from lecturemath_tpu_torch.models.convert import load_checkpoint
+    from lecturemath_tpu_torch.models.fcn_lecturenet import FCNLectureNet
+    from lecturemath_tpu_torch.pipeline.binarize import Binarizer
+    from lecturemath_tpu_torch.utils.png import read_image
+
+    config = Config.from_file(conf)
+    config.set("BINARIZATION_FCN_LECTURENET_FILENAME",
+               os.path.basename(model))
+    database = MetaDataDB.from_file(config.get_str("VIDEO_DATABASE_PATH"))
+    seconds = {}
+    t0 = time.perf_counter()
+    gt, to_binarize = load_dataset_keyframes(config.get_str("OUTPUT_PATH"),
+                                             database, "training")
+    seconds["load GT (PNG decode, object masks, CCs)"] = \
+        time.perf_counter() - t0
+    fake = KeyframeAnnotation.generate_fake_keyframe_info(gt)
+    binarizer = Binarizer.from_config(config)
+    t0 = time.perf_counter()
+    binarize_keyframes(binarizer, to_binarize)
+    torch.cuda.synchronize()
+    seconds["binarize + CCs (binarize_keyframes)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Evaluator(KEYFRAME_BIN_PARAMS).compute_summary_metrics(
+        fake[2], gt, fake[0], fake[1], fake[2], to_binarize)
+    seconds["CC metrics (compute_summary_metrics)"] = \
+        time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Evaluator.compute_pixel_binary_metrics(gt, to_binarize)
+    seconds["pixel metrics"] = time.perf_counter() - t0
+    log("keyframe-bin protocol, host s by step: " + json.dumps(
+        {k: round(v, 3) for k, v in seconds.items()}))
+
+    by_shape = {}
+    for kf in to_binarize:
+        by_shape.setdefault(kf.raw_image.shape, []).append(kf)
+    kfps = {}
+    for shape, kfs in by_shape.items():
+        batch = max(1, 8_000_000 // (shape[0] * shape[1]))
+        tensor = torch.from_numpy(
+            np.stack([kf.raw_image for kf in kfs[:batch]])).cuda()
+        ms = cuda_ms(lambda: binarizer._binarize_fn(tensor), reps=5)
+        kfps[f"{shape[1]}x{shape[0]}"] = len(tensor) / ms * 1000.0
+        log(f"binarizer at {shape[1]}x{shape[0]}, batch {len(tensor)}: "
+            f"{ms:.3f} ms a batch (CUDA events) = "
+            f"{len(tensor) / ms * 1000.0:.2f} keyframes/s")
+    del tensor
+
+    # what keyframe_bin.main saved, every keyframe, against plain f32
+    plain_model = FCNLectureNet(binarizer.model.config, plain=True)
+    plain_model.load_state_dict(load_checkpoint(model))
+    plain = Binarizer(plain_model, dtype=torch.float32)
+    save_dir = config.get_str("FCN_BINARIZER_SAVE_BINARY_PATH")
+    flips = pixels = 0
+    for shape, kfs in by_shape.items():
+        batch = max(1, 8_000_000 // (shape[0] * shape[1]))
+        for start in range(0, len(kfs), batch):
+            chunk = kfs[start:start + batch]
+            theirs = plain.binarize_frames(
+                np.stack([kf.raw_image for kf in chunk]))
+            for kf, reference in zip(chunk, theirs):
+                saved = read_image(os.path.join(
+                    save_dir, "FCN", kf.lecture, "binary", f"{kf.idx}.png"))
+                if saved.shape[:2] != reference.shape:
+                    raise AssertionError(f"saved binary {kf.lecture}/"
+                                         f"{kf.idx}: {saved.shape}")
+                flips += int((saved[:, :, 0] != reference).sum())
+                pixels += reference.size
+    flip_rate = flips / pixels
+    log(f"keyframe binaries saved by keyframe_bin.main (bf16 kernels), all "
+        f"{len(to_binarize)}, vs plain f32 on the card: flip rate "
+        f"{flip_rate:.6f} (bound {MAX_FLIP_RATE})")
+    if flip_rate > MAX_FLIP_RATE:
+        raise AssertionError(f"keyframe flip rate {flip_rate} > "
+                             f"{MAX_FLIP_RATE}")
+    return flip_rate, kfps, seconds
+
+
+def phase_evaluation(counters):
+    """Phase 9: the evaluation path on the card through its entry points;
+    returns (launch counts of every kernel in ``counters``, summary
+    dict)."""
+    import torch
+
+    from lecturemath_tpu_torch.cli import (eval_segments, eval_summaries,
+                                           eval_text_detector)
+    from lecturemath_tpu_torch.core.config import Config
+    from lecturemath_tpu_torch.core.metadata import MetaDataDB
+    from lecturemath_tpu_torch.eval import keyframe_bin
+    from lecturemath_tpu_torch.eval.summary_eval import SummaryEvaluator
+
+    t0 = time.perf_counter()
+    conf, counts = make_eval_tree()
+    log(f"evaluation GT tree ({counts} keyframes, {TD_PAIRS} text-detector "
+        f"pairs at {TD_WIDTH}x{TD_HEIGHT}) written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    model = os.path.join(WORKSPACE, "models", "smoke.dat")
+    walls = {}
+    for fn in counters.values():
+        fn.launches = 0
+    keyframe_result, _, walls["keyframe_bin"] = run_eval_cli(
+        "eval.keyframe_bin.main", keyframe_bin.main,
+        ["keyframe_bin", conf, model, "0"])
+    _, summaries, walls["eval_summaries"] = run_eval_cli(
+        "cli.eval_summaries", eval_summaries.main,
+        ["eval_summaries", conf, "-l", "smoke01"])
+    _, segments, walls["eval_segments"] = run_eval_cli(
+        "cli.eval_segments", eval_segments.main,
+        ["eval_segments", conf, "0"])
+    config = Config.from_file(conf)
+    database = MetaDataDB.from_file(config.get_str("VIDEO_DATABASE_PATH"))
+    t0 = time.perf_counter()
+    self_metrics = SummaryEvaluator().evaluate_lecture(
+        config, database, database.get_lecture("smoke01"), "self_")
+    walls["self-evaluation"] = time.perf_counter() - t0
+    _, _, walls["eval_text_detector"] = run_eval_cli(
+        "cli.eval_text_detector", eval_text_detector.main,
+        ["eval_text_detector", conf, model])
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"evaluation path launches {launches}; wall s "
+        f"{json.dumps({k: round(v, 3) for k, v in walls.items()})}")
+    if launches["conv_same_nhwc"] <= 0:
+        raise AssertionError("K2 was not launched on the evaluation path")
+
+    self_numbers = summary_numbers(self_metrics)
+    log(f"self-evaluation (GT scored as its own summary), recall/precision "
+        f"by min R/P: {self_numbers}")
+    if any(pair != (1.0, 1.0) for pair in self_numbers.values()):
+        raise AssertionError(f"self-evaluation is not perfect: "
+                             f"{self_numbers}")
+    staged = SummaryEvaluator()
+    staged_metrics = staged.evaluate_lecture(
+        config, database, database.get_lecture("smoke01"))
+    staged_numbers = summary_numbers(staged_metrics)
+    log(f"staged summary against the GT, recall/precision by min R/P: "
+        f"{staged_numbers}")
+    for key, (recall, precision) in staged_numbers.items():
+        check_metrics(f"staged summary {key}",
+                      {"recall": recall, "precision": precision})
+    if "Finished" not in summaries or "SIoU" not in segments:
+        raise AssertionError("an evaluation CLI did not finish")
+
+    # the gates hold what the entry point computed
+    scope_metrics, _, pixel = keyframe_result
+    check_metrics("pixel", pixel)
+    for entry in scope_metrics["all"]:
+        check_metrics(f"keyframe-bin {entry['min_cc_recall']}", {
+            key: value for side in ("recall_metrics", "precision_metrics")
+            for key, value in entry[side].items()
+            if isinstance(value, float)})
+    keyframe_numbers = summary_numbers(scope_metrics)
+    log(f"keyframe-bin protocol (keyframe_bin.main) on "
+        f"{sum(counts.values())} keyframes: pixel "
+        f"{json.dumps({k: round(v, 6) for k, v in pixel.items()})}; CC "
+        f"recall/precision by min R/P {keyframe_numbers}")
+    flip_rate, kfps, seconds = eval_breakdown(conf, model)
+    torch.cuda.empty_cache()
+    return launches, {"walls": walls, "flip_rate": flip_rate,
+                      "keyframes_per_s": kfps, "host_s": seconds,
+                      "pixel": pixel}
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "lecturemath_tpu_torch")):
         print("chip_smoke.py: lecturemath_tpu_torch not found beside this "
@@ -2307,6 +2748,8 @@ def main():
     summary = {}
     training_launches = {}
     training = {}
+    evaluation_launches = {}
+    evaluation = {}
     try:
         conf, _ = make_workspace()
         try:
@@ -2338,6 +2781,12 @@ def main():
         except Exception:  # noqa: BLE001 — report every phase, then fail
             traceback.print_exc()
             failures.append("training path")
+        torch.cuda.empty_cache()
+        try:
+            evaluation_launches, evaluation = phase_evaluation(counters)
+        except Exception:  # noqa: BLE001 — report every phase, then fail
+            traceback.print_exc()
+            failures.append("evaluation path")
     except Exception:  # noqa: BLE001 — report every phase, then fail
         traceback.print_exc()
         failures.append("workspace")
@@ -2356,7 +2805,8 @@ def main():
                 "express": launches.get(name, 0),
                 "staged": staged_launches.get(name, 0),
                 "serving": serving_launches.get(name, 0),
-                "training": training_launches.get(name, 0)}
+                "training": training_launches.get(name, 0),
+                "evaluation": evaluation_launches.get(name, 0)}
     for key in SERVING_KERNELS:
         if key in records and serving:
             device_us = {bucket: numbers["device_us"]
@@ -2375,6 +2825,11 @@ def main():
         log("training steps: " + json.dumps(
             {key: {m: round(v, 3) for m, v in numbers.items()}
              for key, numbers in training["steps"].items()}))
+    if evaluation:
+        log("evaluation: " + json.dumps(
+            {"keyframes_per_s": evaluation["keyframes_per_s"],
+             "wall_s": evaluation["walls"], "host_s": evaluation["host_s"],
+             "flip_rate": evaluation["flip_rate"]}))
     log(f"express {summary.get('fps', 0):.2f} fps on {card}")
     log(card)
     log(json.dumps({"kernels": list(records.values())}))

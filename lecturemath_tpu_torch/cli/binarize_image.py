@@ -20,24 +20,18 @@ def main(argv=None):
     import torch
 
     from ..core.backend_probe import ensure_backend
-    from ..core.config import Config, parse_cli_overrides
-    from ..core.device import resolve_device
+    from ..core.config import Config
+    from ..core.device import cli_args, resolve_device
     from ..pipeline.binarize import Binarizer
     from ..pipeline.server import decode_image
-    from ..utils.png import encode_png
+    from ..utils.png import write_image
 
     argv = sys.argv if argv is None else argv
-    args = list(argv[1:])
-    cut = next((i for i, a in enumerate(args) if a.startswith("-")),
-               len(args))
-    positional, params = args[:cut], parse_cli_overrides(args[cut:])
+    positional, device = cli_args(argv[1:])
     if len(positional) < 3:
         print(f"Usage: python {argv[0]} config model image [out_prefix] "
               f"[-device cpu]")
         return
-    device = params.get("device")
-    if device is not None and not isinstance(device, str):
-        raise ValueError("-device requires a value (e.g. -device cpu)")
     device = resolve_device(device)
 
     ensure_backend(device=device)
@@ -56,8 +50,7 @@ def main(argv=None):
               else os.path.splitext(positional[2])[0])
     for suffix, image in (("_BIN.png", binary[0]), ("_text.png", text_mask[0]),
                           ("_bg.png", rec[0].flip(-1))):
-        with open(prefix + suffix, "wb") as f:
-            f.write(encode_png(image.cpu().numpy()))
+        write_image(prefix + suffix, image.cpu().numpy())
     print(f"Wrote {prefix}_BIN.png / _text.png / _bg.png")
 
 

@@ -4,7 +4,7 @@ card raises."""
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -23,3 +23,18 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
                            "is_available() is False; pass device='cpu' "
                            "(CLI: -device cpu) to run on the CPU")
     return dev
+
+
+def cli_args(args: Sequence[str]) -> Tuple[List[str], Optional[str]]:
+    """Split a CLI's arguments (without the program name) into the
+    positional ones before the first ``-key`` and the device that
+    ``-device`` names (None: the card, once resolved)."""
+    from .config import parse_cli_overrides
+
+    args = list(args)
+    cut = next((i for i, a in enumerate(args) if a.startswith("-")),
+               len(args))
+    device = parse_cli_overrides(args[cut:]).get("device")
+    if device is not None and not isinstance(device, str):
+        raise ValueError("-device requires a value (e.g. -device cpu)")
+    return args[:cut], device

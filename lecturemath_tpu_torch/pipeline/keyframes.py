@@ -197,13 +197,12 @@ def export_summary(output_prefix: str, database_name: str, lecture_title: str,
     """Write keyframes/<idx>.png + segments.xml (+ gui_export.xml).
     Returns the segments.xml path. The keyframe PNGs have the bytes
     ``cv2.imwrite`` would write (utils/png.py)."""
-    from ..utils.png import encode_png
+    from ..utils.png import write_image
 
     keyframes_dir = os.path.join(output_prefix, "keyframes")
     os.makedirs(keyframes_dir, exist_ok=True)
     for index, image in zip(summary_indices, keyframes):
-        with open(os.path.join(keyframes_dir, f"{index}.png"), "wb") as f:
-            f.write(encode_png(image))
+        write_image(os.path.join(keyframes_dir, f"{index}.png"), image)
 
     xml_path = os.path.join(output_prefix, "segments.xml")
     with open(xml_path, "w") as f:

@@ -26,35 +26,16 @@ import numpy as np
 
 from ..core.config import Config
 from ..utils.image import resize_linear, resize_nearest
-from ..utils.png import (PNGFormatError, decode_png_color, decode_png_gray,
+from ..utils import png
+from ..utils.png import (ImageFormatError, decode_png_color, decode_png_gray,
                          encode_png)
 from . import augment
-
-
-class ImageFormatError(ValueError):
-    """A training image the port cannot decode without OpenCV (JPEG)."""
 
 
 def read_image(path: str) -> np.ndarray:
     """``cv2.imread(path)[:, :, ::-1]``: the file as uint8 RGB [H, W, 3].
     PNGs of every kind decode without OpenCV; any other file needs it."""
-    with open(path, "rb") as f:
-        data = f.read()
-    try:
-        return decode_png_color(data)
-    except PNGFormatError as err:
-        if data.startswith(b"\x89PNG"):
-            raise ImageFormatError(f"{path}: {err}") from None
-    try:
-        import cv2
-    except ImportError:
-        raise ImageFormatError(
-            f"{path}: not a PNG; JPEG and other formats need OpenCV (cv2), "
-            f"which is not installed; convert the file to PNG") from None
-    image = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
-    if image is None:
-        raise ImageFormatError(f"{path}: not a decodable image")
-    return np.ascontiguousarray(image[:, :, ::-1])
+    return png.read_image(path, rgb=True)
 
 
 def find_images(directory: str, extensions=(".png", ".jpg", ".jpeg")) -> List[str]:

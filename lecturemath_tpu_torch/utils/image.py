@@ -13,7 +13,10 @@ Each function reproduces one library call's arithmetic:
     (Pillow's separable resample in 22-bit fixed point, horizontal first;
     each pass in the native library where it builds, else in numpy);
   * ``rgb_to_yuv420``: ``cv2.cvtColor(..., cv2.COLOR_RGB2YUV_I420)`` in
-    OpenCV's 20-bit integer BT.601 arithmetic.
+    OpenCV's 20-bit integer BT.601 arithmetic;
+  * ``fill_poly``: ``cv2.fillPoly(img, [pts], color)`` with the default
+    ``lineType=8`` and ``shift=0`` (8-connected outline plus a 16-bit
+    fixed-point scanline fill, both clipped to the image as OpenCV clips).
 
 Images are uint8 [H, W] or [H, W, C]; sizes are (width, height) as for cv2.
 The coefficient tables are built once for each (source, destination) size
@@ -32,7 +35,7 @@ from .. import native
 
 __all__ = ["resize_nearest", "resize_area", "resize_linear", "halve_lanczos",
            "rgb_to_yuv420", "rgb_to_gray", "rgb_to_hsv", "hsv_to_rgb",
-           "ellipse_kernel", "erode", "median_blur"]
+           "ellipse_kernel", "erode", "median_blur", "fill_poly"]
 
 
 def _check(img: np.ndarray, size: Tuple[int, int]) -> Tuple[int, int]:
@@ -559,3 +562,143 @@ def _median_numpy(img: np.ndarray, ksize: int) -> np.ndarray:
         flat = windows.reshape(*windows.shape[:3], ksize * ksize)
         out[y0:y1] = np.partition(flat, middle, axis=-1)[..., middle]
     return out[..., 0] if img.ndim == 2 else out
+
+
+# ------------------------------------------------------------ polygon fill
+
+_XY_SHIFT = 16
+_PAST_RIGHT = 1 << 62   # the x of an edge that does not span the row
+
+
+def _clip_line(width: int, height: int, x1: int, y1: int, x2: int, y2: int):
+    """OpenCV's ``clipLine`` on integer points: returns (inside, x1, y1,
+    x2, y2), the points moved onto the image's edges by its truncating
+    double arithmetic (also when the segment misses the image)."""
+    right, bottom = width - 1, height - 1
+    c1 = (x1 < 0) + (x1 > right) * 2 + (y1 < 0) * 4 + (y1 > bottom) * 8
+    c2 = (x2 < 0) + (x2 > right) * 2 + (y2 < 0) * 4 + (y2 > bottom) * 8
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int(float(a - y1) * (x2 - x1) / (y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int(float(a - y2) * (x2 - x1) / (y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int(float(a - x1) * (y2 - y1) / (x2 - x1))
+                x1 = a
+                c1 = 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int(float(a - x2) * (y2 - y1) / (x2 - x1))
+                x2 = a
+                c2 = 0
+    return (c1 | c2) == 0, x1, y1, x2, y2
+
+
+def _outside(width: int, height: int, x1: int, y1: int, x2: int,
+             y2: int) -> bool:
+    return not (0 <= x1 < width and 0 <= x2 < width and 0 <= y1 < height
+                and 0 <= y2 < height)
+
+
+def _line(img: np.ndarray, x1: int, y1: int, x2: int, y2: int,
+          color) -> None:
+    """OpenCV's 8-connected ``Line`` (its ``LineIterator``, left to
+    right, clipped first): one pixel for each step along the major axis,
+    and a step along the minor axis where Bresenham's error goes
+    negative, which is step k's offset (2 * minor * k + major - 1) //
+    (2 * major)."""
+    height, width = img.shape[:2]
+    if _outside(width, height, x1, y1, x2, y2):
+        inside, x1, y1, x2, y2 = _clip_line(width, height, x1, y1, x2, y2)
+        if not inside:
+            return
+    if x2 < x1:
+        x1, y1, x2, y2 = x2, y2, x1, y1
+    dx, dy = x2 - x1, abs(y2 - y1)
+    sy = 1 if y2 >= y1 else -1
+    major, minor = max(dx, dy), min(dx, dy)
+    steps = np.arange(major + 1, dtype=np.int64)
+    offsets = (2 * minor * steps + major - 1) // (2 * major) if major else steps
+    if dy > dx:
+        img[y1 + sy * steps, x1 + offsets] = color
+    else:
+        img[y1 + sy * offsets, x1 + steps] = color
+
+
+def fill_poly(img: np.ndarray, pts: np.ndarray, color=255) -> np.ndarray:
+    """``cv2.fillPoly(img, [pts], color)`` for one integer polygon [N, 2]
+    (x, y) on a uint8 [H, W] or [H, W, C] image, in place; returns img.
+
+    OpenCV draws every edge with its 8-connected line, then fills the rows
+    between edges even-odd. Each edge spans its own rows, its x in 16-bit
+    fixed point from its upper end, one truncated step a row; a row fills
+    from the ceiling of its left x to the floor of its right x. An edge
+    with an end outside the image takes its ends' x from the segment
+    clipLine leaves of it, and their rows too unless those are level: its
+    step and its x at the top row follow that segment. Rows and columns
+    outside the image are cut, and a polygon wholly outside fills nothing.
+    One and two points draw their outline only."""
+    pts = np.asarray(pts).reshape(-1, 2).astype(np.int64)
+    height, width = img.shape[:2]
+    if len(pts) == 0 or height == 0 or width == 0:
+        return img
+    edges = []  # (top y, bottom y, x at the top in fixed point, x step)
+    x0, y0 = (int(v) for v in pts[-1])
+    for x1, y1 in ((int(x), int(y)) for x, y in pts):
+        _line(img, x0, y0, x1, y1, color)
+        c0 = [x0 << _XY_SHIFT, y0]
+        c1 = [x1 << _XY_SHIFT, y1]
+        if _outside(width, height, x0, y0, x1, y1):
+            _, a, b, c, d = _clip_line(width, height, x0, y0, x1, y1)
+            if b != d:
+                c0[1], c1[1] = b, d
+            c0[0], c1[0] = a << _XY_SHIFT, c << _XY_SHIFT
+        if y0 != y1:
+            num, den = c1[0] - c0[0], c1[1] - c0[1]
+            step = abs(num) // abs(den) * (1 if (num < 0) == (den < 0) else -1)
+            top, bottom, c_top = (y0, y1, c0) if y0 < y1 else (y1, y0, c1)
+            edges.append((top, bottom, c_top[0] + (top - c_top[1]) * step,
+                          step))
+        x0, y0 = x1, y1
+    if len(edges) < 2:
+        return img
+
+    tops, bottoms, xs, steps = (np.array(column, dtype=np.int64)
+                                for column in zip(*edges))
+    ends = xs + (bottoms - tops) * steps
+    if (bottoms.max() < 0 or tops.min() >= height
+            or max(xs.max(), ends.max()) < 0
+            or min(xs.min(), ends.min()) >= width << _XY_SHIFT):
+        return img
+    # every edge of a closed polygon that spans row y ([top, bottom))
+    # advances once a row, so its x there is exact: top x + (y - top) * step
+    rows = np.arange(max(0, int(tops.min())),
+                     min(height, int(bottoms.max())), dtype=np.int64)
+    if not len(rows):
+        return img
+    live = (rows[:, None] >= tops) & (rows[:, None] < bottoms)
+    at_row = xs + (rows[:, None] - tops) * steps
+    at_row = np.where(live, at_row, _PAST_RIGHT)
+    if len(edges) % 2:
+        at_row = np.pad(at_row, ((0, 0), (0, 1)), constant_values=_PAST_RIGHT)
+    at_row.sort(axis=1)
+    pairs = live.sum(axis=1)[:, None] > np.arange(0, at_row.shape[1], 2)
+    left = (at_row[:, 0::2] + (1 << _XY_SHIFT) - 1) >> _XY_SHIFT
+    right = at_row[:, 1::2] >> _XY_SHIFT
+    pairs &= (left < width) & (right >= 0)
+    row_of, k = np.nonzero(pairs)
+    runs = np.zeros((len(rows), width + 1), np.int32)
+    np.add.at(runs, (row_of, np.clip(left[row_of, k], 0, None)), 1)
+    np.add.at(runs, (row_of, np.clip(right[row_of, k], None, width - 1) + 1),
+              -1)
+    filled = np.cumsum(runs[:, :width], axis=1) > 0
+    img[rows[0]:rows[-1] + 1][filled] = color
+    return img

@@ -26,7 +26,10 @@ OpenCV's decoder (libpng, as OpenCV configures it) gives:
   * ``decode_png_gray``: gray kinds only, refusing colour (the stage
     artifacts' relay, which never holds colour).
 
-Each raises ``PNGFormatError`` on a buffer that is not a PNG. Passes whose
+Each raises ``PNGFormatError`` on a buffer that is not a PNG.
+``read_image`` reads a file as ``cv2.imread`` does (BGR or gray): a PNG
+here, any other format through OpenCV where it is installed;
+``write_image`` writes one as ``cv2.imwrite`` writes a PNG. Passes whose
 rows are all filtered Sub (what this encoder and OpenCV write) are undone
 in numpy; any other mix of filters (libpng's and Pillow's adaptive
 filtering choose Avg and Paeth for many rows) goes to the native library's
@@ -64,6 +67,12 @@ _MEM_LEVEL = 8
 MAX_PIXELS = 1 << 30
 # deflate's largest expansion: 258 bytes from about 2 bits, plus slack
 _DEFLATE_RATIO = 1100
+
+
+class ImageFormatError(ValueError):
+    """An image file the port cannot decode without OpenCV (JPEG and the
+    other non-PNG formats where OpenCV is not installed), or a broken
+    one."""
 
 
 class PNGFormatError(ValueError):
@@ -404,3 +413,43 @@ def decode_png(buf: Union[bytes, bytearray, memoryview, np.ndarray]
     if decoded[1] in _GRAY_KINDS:
         return _gray(*decoded)
     return _rgb(*decoded)
+
+
+def write_image(path: str, img: np.ndarray) -> None:
+    """``cv2.imwrite(path, img)`` for a PNG path: ``encode_png``'s bytes."""
+    with open(path, "wb") as f:
+        f.write(encode_png(img))
+
+
+def read_image(path: str, grayscale: bool = False,
+               rgb: bool = False) -> np.ndarray:
+    """``cv2.imread(path)``: the file as uint8 BGR [H, W, 3], or with
+    ``grayscale`` as ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)``, uint8
+    [H, W]. With ``rgb`` the colour channels come in RGB order, which a PNG
+    decodes to with no copy. PNGs of every kind decode without OpenCV; any
+    other file needs it, and where it is not installed raises
+    ``ImageFormatError`` naming it."""
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        if grayscale:
+            return decode_png_grayscale(data)
+        image = decode_png_color(data)
+        return image if rgb else np.ascontiguousarray(image[:, :, ::-1])
+    except PNGFormatError as err:
+        if data.startswith(SIGNATURE):
+            raise ImageFormatError(f"{path}: {err}") from None
+    try:
+        import cv2
+    except ImportError:
+        raise ImageFormatError(
+            f"{path}: not a PNG; JPEG and other formats need OpenCV (cv2), "
+            f"which is not installed; convert the file to PNG") from None
+    image = cv2.imdecode(np.frombuffer(data, np.uint8),
+                         cv2.IMREAD_GRAYSCALE if grayscale
+                         else cv2.IMREAD_COLOR)
+    if image is None:
+        raise ImageFormatError(f"{path}: not a decodable image")
+    if rgb and not grayscale:
+        return np.ascontiguousarray(image[:, :, ::-1])
+    return image

@@ -688,3 +688,115 @@ def test_run_phase_on_the_card_writes_a_msgpack_the_cpu_reads(cuda,
     for key, value in read.items():
         if not key.endswith("num_batches_tracked"):  # not in the format
             assert torch.equal(value, trained[key]), key
+
+
+# ------------------------------------------------------------ evaluation
+
+# the serving tests' narrow widths with the production pixel kernel (k=7)
+EVAL_WIDTHS = {
+    **{f"FCN_BINARIZER_NET_{kind}_{i}": w
+       for kind in ("DOWN_CONV_FILTERS", "UPSAMPLE_FILTERS",
+                    "UP_CONV_FILTERS")
+       for i, w in enumerate((8, 8, 16, 16, 32), 1)},
+    "FCN_BINARIZER_NET_MIDDLE_CONV_FILTERS_MIDDLE": 32,
+    "FCN_BINARIZER_NET_PIXEL_FEATURES_1": 32,
+    "FCN_BINARIZER_NET_PIXEL_FEATURES_2": 16,
+    "FCN_BINARIZER_NET_PIXEL_KERNEL_SIZE": 7,
+    "FCN_BINARIZER_NET_KERNEL_SIZE": 3,
+}
+# keyframe pixels that may differ between the bf16 kernel path and plain f32
+MAX_FLIP_RATE = 0.01
+
+
+def _eval_workspace(tmp_path):
+    """The keyframe-bin GT tree at EVAL_WIDTHS with a threshold checkpoint,
+    and 4 PNG image/mask pairs for the text-detector evaluation."""
+    from _torch_eval_tree import keyframe_bin_tree, write_png
+    from lecturemath_tpu_torch.core.config import Config
+    from lecturemath_tpu_torch.models.convert import save_checkpoint
+    from lecturemath_tpu_torch.models.fcn_lecturenet import FCNConfig
+    from lecturemath_tpu_torch.utils.synthetic import (
+        synthetic_rgb_lecture, threshold_binarizer_variables)
+
+    root = str(tmp_path)
+    conf = keyframe_bin_tree(root, EVAL_WIDTHS)
+    with open(conf, "a") as f:
+        f.write(f"FCN_BINARIZER_PRETRAIN_EVAL_IMAGES_DIR = {root}/td/images\n"
+                f"FCN_BINARIZER_PRETRAIN_EVAL_MASKS_DIR = {root}/td/masks\n")
+    config = Config.from_file(conf)
+    net_config = FCNConfig.from_config(config)
+    model = str(tmp_path / "threshold.dat")
+    save_checkpoint(threshold_binarizer_variables(net_config), model)
+    rgb, binary, _, _ = synthetic_rgb_lecture(seed=7, n_frames=4, height=48,
+                                              width=64, glyphs_per_board=4,
+                                              glyph_size=(10, 12))
+    for k in range(4):
+        write_png(f"{root}/td/images/p{k}.png", rgb[k][:, :, ::-1])
+        write_png(f"{root}/td/masks/p{k}.png", binary[k])
+    return conf, config, net_config, model
+
+
+def test_keyframe_binarization_within_flip_bound_of_plain_f32(cuda,
+                                                              tmp_path):
+    """The GT keyframes binarized on the card in bf16 (K2 on the heads)
+    against the plain f32 model on the card."""
+    from lecturemath_tpu_torch.core.metadata import MetaDataDB
+    from lecturemath_tpu_torch.eval.keyframe_bin import binarize_keyframes
+    from lecturemath_tpu_torch.eval.summary_eval import \
+        load_dataset_keyframes
+    from lecturemath_tpu_torch.models.convert import load_checkpoint
+    from lecturemath_tpu_torch.models.fcn_lecturenet import FCNLectureNet
+    from lecturemath_tpu_torch.pipeline.binarize import Binarizer
+
+    conf, config, net_config, model = _eval_workspace(tmp_path)
+    database = MetaDataDB.from_file(config.get_str("VIDEO_DATABASE_PATH"))
+    _, kernel_kfs = load_dataset_keyframes(config.get_str("OUTPUT_PATH"),
+                                           database)
+    _, plain_kfs = load_dataset_keyframes(config.get_str("OUTPUT_PATH"),
+                                          database)
+    kernel = FCNLectureNet(net_config)
+    kernel.load_state_dict(load_checkpoint(model))
+    plain = FCNLectureNet(net_config, plain=True)
+    plain.load_state_dict(load_checkpoint(model))
+    before = conv_same_nhwc.launches
+    binarize_keyframes(Binarizer(kernel, device=cuda, dtype=torch.bfloat16),
+                       kernel_kfs)
+    assert conv_same_nhwc.launches > before
+    binarize_keyframes(Binarizer(plain, device=cuda, dtype=torch.float32),
+                       plain_kfs)
+    flips = sum(int((a.binary_image != b.binary_image).sum())
+                for a, b in zip(kernel_kfs, plain_kfs))
+    pixels = sum(kf.binary_image.size for kf in kernel_kfs)
+    assert flips <= MAX_FLIP_RATE * pixels
+    assert all((kf.binary_image == 0).any() for kf in kernel_kfs)
+
+
+def test_evaluate_keyframe_binarization_launches_k2(cuda, tmp_path):
+    from lecturemath_tpu_torch.eval.keyframe_bin import \
+        evaluate_keyframe_binarization
+
+    conf, config, _, model = _eval_workspace(tmp_path)
+    before = conv_same_nhwc.launches
+    scope_metrics, scopes, pixel = evaluate_keyframe_binarization(
+        config, model, "training", save_binaries=False)
+    # four head convs a batch, two resolution buckets
+    assert conv_same_nhwc.launches - before >= 8
+    assert "all" in scopes
+    for key in ("recall", "precision", "fmeasure"):
+        assert 0.0 <= pixel[key] <= 1.0, key
+    # the board variants drop the ink on the objects from the denominator
+    # only (as the JAX package computes them), so they may pass 1
+    assert pixel["board_precision"] >= pixel["precision"]
+    assert np.isfinite(pixel["board_fmeasure"])
+    assert pixel["recall"] > 0.5
+
+
+def test_eval_text_detector_cli_on_the_card(cuda, tmp_path, capsys):
+    from lecturemath_tpu_torch.cli import eval_text_detector
+
+    conf, _, _, model = _eval_workspace(tmp_path)
+    before = conv_same_nhwc.launches
+    eval_text_detector.main(["eval_text_detector", conf, model])
+    out = capsys.readouterr().out
+    assert conv_same_nhwc.launches - before == 4 * 4  # 4 images, 4 heads
+    assert out.count("Processing:") == 4 and "Pixel" in out

@@ -237,3 +237,84 @@ def test_serving_path_needs_no_opencv():
         capture_output=True, text=True, timeout=120)
     assert result.returncode == 0, result.stderr[-3000:]
     assert "serving ok" in result.stdout
+
+
+EVAL_MODULES = [
+    "lecturemath_tpu_torch.ops.overlap",
+    *[f"lecturemath_tpu_torch.eval.{name}" for name in (
+        "aligner", "annotation", "evaluator", "keyframe_bin",
+        "lecture_annotation", "segments_eval", "summary_eval",
+        "text_detector_eval")],
+    "lecturemath_tpu_torch.eval",
+    *[f"lecturemath_tpu_torch.cli.{name}" for name in (
+        "eval_summaries", "eval_segments", "eval_text_detector")],
+]
+
+
+@pytest.mark.parametrize("module", EVAL_MODULES)
+def test_eval_slice_modules_are_checked(module):
+    """The evaluation modules, the overlap ops and the three evaluation
+    CLIs are among the files the checks above walk."""
+    assert module in [_module_name(p) for p in _port_files()]
+
+
+_EVAL_NO_OPENCV = r"""
+import sys
+for name in ("cv2", "PIL", "PIL.Image", "matplotlib", "matplotlib.path",
+             "msgpack"):
+    sys.modules[name] = None
+sys.path.insert(0, %r)
+import torch
+from lecturemath_tpu_torch.cli import eval_segments, eval_summaries
+from lecturemath_tpu_torch.core.config import Config
+from lecturemath_tpu_torch.eval.keyframe_bin import \
+    evaluate_keyframe_binarization
+from lecturemath_tpu_torch.eval.lecture_annotation import \
+    polygon_intersection_area
+from lecturemath_tpu_torch.pipeline.binarize import Binarizer
+from_config = Binarizer.from_config
+Binarizer.from_config = lambda config, **kw: from_config(
+    config, **dict(kw, dtype=torch.float32))
+summary_conf, kb_conf, model = %r
+eval_summaries.main(["eval_summaries", summary_conf])
+eval_segments.main(["eval_segments", summary_conf, "1"])
+config = Config.from_file(kb_conf)
+config.set("FCN_BINARIZER_SAVE_BINARY_PATH", %r)
+scope_metrics, scopes, pixel = evaluate_keyframe_binarization(
+    config, model, "training", save_binaries=True, device="cpu")
+assert 0 < pixel["recall"] <= 1 and "all" in scopes
+star = [[0, 0], [10, 4], [4, 6], [6, 14], [0, 6]]
+assert polygon_intersection_area(star, [[c[1], c[0]] for c in star]) > 0
+print("eval ok")
+"""
+
+
+def test_eval_path_needs_no_opencv(tmp_path):
+    """Summary, segment and keyframe-binarization evaluation on a PNG GT
+    tree, with polygon objects and the non-convex overlap, run with cv2,
+    PIL and matplotlib unimportable, as on a machine that has none of
+    them."""
+    from lecturemath_tpu_torch.core.config import Config
+    from lecturemath_tpu_torch.models.convert import save_checkpoint
+    from lecturemath_tpu_torch.models.fcn_lecturenet import FCNConfig
+    from lecturemath_tpu_torch.utils.synthetic import \
+        threshold_binarizer_variables
+
+    import _torch_eval_tree as tree
+
+    summary_conf = tree.summary_tree(str(tmp_path / "summary"))
+    kb_conf = tree.keyframe_bin_tree(str(tmp_path / "kb"))
+    cfg = FCNConfig.from_config(Config.from_file(kb_conf))
+    model = str(tmp_path / "threshold.dat")
+    save_checkpoint(threshold_binarizer_variables(cfg), model)
+    script = _EVAL_NO_OPENCV % (REPO, (summary_conf, kb_conf, model),
+                                str(tmp_path / "saved"))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    result = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                            capture_output=True, text=True, timeout=300,
+                            env=env)
+    assert result.returncode == 0, result.stderr[-3000:]
+    assert "eval ok" in result.stdout and "SIoU" in result.stdout
+    assert "Finished" in result.stdout
+    assert (tmp_path / "saved" / "FCN" / "kb01" / "binary" / "500.png") \
+        .exists()
