@@ -85,10 +85,25 @@ then, in phases:
      for every keyframe (bf16 kernels) within the 1% flip rate of plain f32
      on the card; every metric that main returned finite and in [0, 1]
      (the board variants of the pixel metrics may pass 1 by their
-     definition); K2 launched on the path.
+     definition); K2 launched on the path;
+ 10. scale-out over the data axis at the same widths: Binarizer on a 1x1
+     mesh in-process over the phase-4 lecture, bit-identical to the
+     meshless Binarizer, fps of both (median of 3); the binarize and
+     run_pipeline CLIs with -mesh 1x1 in child processes that join a
+     one-rank NCCL world under LM_COORDINATOR / LM_NUM_PROCESSES /
+     LM_PROCESS_ID, their stage-01 artifact byte-identical to the meshless
+     CLI's and their summary identical; in a child of such a world, 3 fp32
+     data-parallel steps (TF32 off, batch 8 at 256x256, weighted, clipped)
+     against the meshless Trainer's losses and BN running statistics, the
+     bf16 step ms of both, the cross-replica BN's and NCCL's device share
+     of a profiled mesh step, and train_reconstruction -mesh 1x1 (finite
+     falling losses, one checkpoint set). With 2 or more cards, inference
+     over 2 cards and a 2-process NCCL training; otherwise one line says
+     they did not run.
 
-The launch counts are set to 0 just before each of the five paths (phases
-4, 6, 7, 8 and 9) and read just after. Serving launches are graph replays times
+The launch counts are set to 0 just before each of the six paths (phases
+4, 6, 7, 8, 9 and 10; in phase 10 around each mesh run, and the child
+processes count their own) and read just after. Serving launches are graph replays times
 the launches each graph holds, counted by the service: the wrappers count
 once when a graph is captured. It prints one JSON line of kernel numbers,
 then as its last line ``{"ok": true, "device": {...}}``, and exits 0 only
@@ -2678,6 +2693,520 @@ def phase_evaluation(counters):
                       "pixel": pixel}
 
 
+# --------------------------------------------------------------- phase 10
+
+# the scale-out phase's data-parallel steps: the phase-8 widths, batch and
+# crop, the binarizer phase with per-pixel weights and the clip
+SCALE_STEPS = 3
+# fp32 (TF32 off) mesh steps against the meshless Trainer's: the cross-
+# replica BN sums its statistics in another order than cuDNN's BN
+SCALE_RTOL, SCALE_ATOL = 1e-5, 1e-5
+# the train CLI's epochs under -mesh 1x1 (2 steps each)
+SCALE_CLI_EPOCHS = 4
+# seconds a child process of the phase may take
+CHILD_TIMEOUT_S = 300
+
+
+def start_child(call, world=1, rank=0, port=None, visible=None):
+    """``chip_smoke.<call>`` in a child process, as process ``rank`` of a
+    world joined under the LM_* contract (``child_results`` waits for
+    it)."""
+    from lecturemath_tpu_torch.parallel.launch import free_port
+
+    env = dict(os.environ, LM_COORDINATOR=f"127.0.0.1:{port or free_port()}",
+               LM_NUM_PROCESSES=str(world), LM_PROCESS_ID=str(rank))
+    if visible is not None:
+        env["CUDA_VISIBLE_DEVICES"] = visible
+    code = (f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
+            f"sys.exit(chip_smoke.{call})")
+    return subprocess.Popen([sys.executable, "-c", code], env=env, cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def child_results(procs, what):
+    """Wait for child processes (killed at CHILD_TIMEOUT_S); log their
+    output and return each one's last-line JSON."""
+    results = []
+    try:
+        for proc in procs:
+            out, _ = proc.communicate(timeout=CHILD_TIMEOUT_S)
+            lines = out.strip().splitlines()
+            for line in lines[:-1]:
+                if "hostname of the client socket" not in line:
+                    log(f"  [{what}] {line}")
+            if proc.returncode != 0 or not lines:
+                raise AssertionError(f"{what}: child exited with "
+                                     f"{proc.returncode}: {lines[-1:]}")
+            results.append(json.loads(lines[-1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return results
+
+
+def counted(counters):
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def memory_frames(driver_cls):
+    """The card's machine has no OpenCV to decode a video: the CLIs read
+    the synthetic lecture from memory."""
+    driver_cls.frame_source = lambda self, lecture: make_source()
+
+
+def scale_cli_child(module_name, conf):
+    """Child: the CLI ``module_name`` on ``conf`` with ``-mesh 1x1`` in the
+    world of the LM_* env; prints its wall and launches."""
+    import importlib
+
+    sys.path.insert(0, REPO)
+    from lecturemath_tpu_torch.ops.conv7 import conv_same_nhwc
+    from lecturemath_tpu_torch.ops.postprocess import threshold_pack
+    from lecturemath_tpu_torch.pipeline.driver import PipelineDriver
+
+    memory_frames(PipelineDriver)
+    module = importlib.import_module(f"lecturemath_tpu_torch.cli."
+                                     f"{module_name}")
+    t0 = time.perf_counter()
+    module.main([module_name, conf, "-mesh", "1x1"])
+    wall = time.perf_counter() - t0
+    print(json.dumps({"wall_s": wall, "launches": {
+        "threshold_pack": threshold_pack.launches,
+        "conv_same_nhwc": conv_same_nhwc.launches}}), flush=True)
+    return 0
+
+
+def scale_batch():
+    """A seeded global training batch at the phase-8 shape, with weights."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    shape = (TRAIN_BATCH, 256, 256)
+    return {"image": rng.uniform(-1, 1, shape + (3,)).astype(np.float32),
+            "target": (rng.random(shape + (1,)) < 0.1).astype(np.float32),
+            "text_mask": (rng.random(shape + (1,)) < 0.3).astype(np.float32),
+            "weights": rng.uniform(0.5, 2.0, shape + (1,)).astype(
+                np.float32)}
+
+
+def scale_trainer(net_config, dtype, mesh):
+    import torch
+
+    from lecturemath_tpu_torch.models.fcn_lecturenet import (FCNLectureNet,
+                                                             init_weights)
+    from lecturemath_tpu_torch.train.trainer import Trainer
+
+    model = init_weights(FCNLectureNet(net_config, compute_dtype=dtype),
+                         torch.Generator().manual_seed(0))
+    return Trainer(model, 0.001, phase="binarizer", use_weights=True,
+                   clip_norm=1.0, prefetch_depth=0,
+                   device=None if mesh is not None else "cuda", mesh=mesh)
+
+
+def scale_steps(trainer, batch):
+    """SCALE_STEPS steps; (per-step totals, running statistics)."""
+    losses = [float(trainer.step(batch)["total"]) for _ in range(SCALE_STEPS)]
+    stats = {key: value.detach().float().cpu()
+             for key, value in trainer.model.state_dict().items()
+             if "running" in key}
+    return losses, stats
+
+
+def step_ms(trainer, batch):
+    """Median step ms over TIMED_STEPS after WARMUP_STEPS, CUDA events."""
+    import statistics
+
+    import torch
+
+    batch = trainer.to_device(batch)
+    for _ in range(WARMUP_STEPS):
+        trainer.step(batch)
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(TIMED_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainer.step(batch)
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def compare_steps(plain, meshed):
+    """The largest relative loss and running-statistic differences; raises
+    past SCALE_RTOL / SCALE_ATOL."""
+    import torch
+
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(meshed[0], plain[0]))
+    stat_rel = 0.0
+    for key, value in plain[1].items():
+        torch.testing.assert_close(meshed[1][key], value, rtol=SCALE_RTOL,
+                                   atol=SCALE_ATOL, msg=key)
+        stat_rel = max(stat_rel, float(((meshed[1][key] - value).abs()
+                                        / value.abs().clamp(min=1e-6)).max()))
+    if loss_rel > SCALE_RTOL:
+        raise AssertionError(f"mesh losses {meshed[0]} vs meshless "
+                             f"{plain[0]}: rel {loss_rel}")
+    return loss_rel, stat_rel
+
+
+def bn_share(trainer, batch):
+    """The cross-replica BN's device share of one profiled mesh step (its
+    forward range and its backward node), the NCCL kernels' (a one-rank
+    world's all-reduce may launch none), the all-reduces the step made and
+    its wall under the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from lecturemath_tpu_torch.parallel import sync_norm
+
+    inner = sync_norm.cross_replica_batch_norm
+
+    def traced(*args, **kwargs):
+        with record_function("cross_replica_batch_norm"):
+            return inner(*args, **kwargs)
+
+    batch = trainer.to_device(batch)
+    trainer.step(batch)
+    torch.cuda.synchronize()
+    sync_norm.cross_replica_batch_norm = traced
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.step(batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        sync_norm.cross_replica_batch_norm = inner
+    events = [e for e in prof.events() if str(e.device_type).endswith("CPU")]
+    total = sum(e.self_device_time_total for e in events)
+    bn = sum(e.device_time_total for e in events
+             if e.name == "cross_replica_batch_norm" or e.name.startswith(
+                 "autograd::engine::evaluate_function: _CrossReplicaBatch"))
+    nccl = sum(k.duration for e in events for k in e.kernels
+               if "nccl" in k.name.lower())
+    collectives = sum(1 for e in events if e.name == "c10d::allreduce_")
+    if total <= 0:
+        return None
+    return {"wall_ms_under_profiler": wall_ms, "device_ms": total / 1e3,
+            "bn_ms": bn / 1e3, "bn_share": bn / total, "nccl_ms": nccl / 1e3,
+            "nccl_share": nccl / total, "all_reduces": collectives}
+
+
+def scale_train_child(conf, cli_conf):
+    """Child: meshless and one-rank-NCCL-mesh training at the phase-8
+    widths (fp32 parity, bf16 step ms, the BN's share), then the
+    train_reconstruction CLI with -mesh 1x1 on ``cli_conf``."""
+    import math
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    from lecturemath_tpu_torch.core.config import Config
+    from lecturemath_tpu_torch.models.convert import load_checkpoint
+    from lecturemath_tpu_torch.models.fcn_lecturenet import FCNConfig
+    from lecturemath_tpu_torch.ops.conv7 import conv_same_nhwc
+    from lecturemath_tpu_torch.parallel.mesh import (
+        MeshSpec, initialize_distributed_from_env, make_mesh,
+        warmup_collectives)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    net_config = FCNConfig.from_config(Config.from_file(conf))
+    batch = scale_batch()
+    out = {}
+    # batch 8 is launch-bound, batch 64 device-bound (phase 8's timings)
+    big = {key: np.concatenate([value] * 8) for key, value in batch.items()}
+    plain = scale_steps(scale_trainer(net_config, torch.float32, None),
+                        batch)
+    plain_ms = {size: step_ms(scale_trainer(net_config, torch.bfloat16,
+                                            None), data)
+                for size, data in ((TRAIN_BATCH, batch), (8 * TRAIN_BATCH,
+                                                         big))}
+    torch.cuda.empty_cache()
+    if not initialize_distributed_from_env():
+        raise AssertionError("no world joined under LM_COORDINATOR")
+    mesh = make_mesh(MeshSpec(1, 1))
+    warmup_collectives(mesh)
+    meshed = scale_steps(scale_trainer(net_config, torch.float32, mesh),
+                         batch)
+    out["loss_rel"], out["stat_rel"] = compare_steps(plain, meshed)
+    out["losses"] = {"meshless": plain[0], "mesh": meshed[0]}
+    out["bf16_step_ms"] = {}
+    for size, data in ((8 * TRAIN_BATCH, big), (TRAIN_BATCH, batch)):
+        trainer = scale_trainer(net_config, torch.bfloat16, mesh)
+        out["bf16_step_ms"][f"batch {size}"] = {
+            "meshless": plain_ms[size], "mesh": step_ms(trainer, data)}
+        if size == TRAIN_BATCH:
+            out["profile"] = bn_share(trainer, data)
+            # the same mesh step with each BN local: the collectives and
+            # the work of the cross-replica BN out of it
+            trainer.model.bn_group = None
+            out["bf16_step_ms"][f"batch {size}"]["mesh, local BN"] = \
+                step_ms(trainer, data)
+        del trainer
+        torch.cuda.empty_cache()
+
+    # the CLI: it joins the same world (idempotent) and leaves it
+    from lecturemath_tpu_torch.cli import train_reconstruction
+
+    epochs = run_training_cli(train_reconstruction,
+                              ["train_reconstruction", cli_conf, "-mesh",
+                               "1x1"])
+    losses = [terms["mse"] for terms in epochs]
+    if not (len(losses) == SCALE_CLI_EPOCHS and losses[-1] < losses[0]
+            and all(math.isfinite(v) for v in losses)):
+        raise AssertionError(f"train CLI -mesh 1x1: losses {losses}")
+    models = os.path.join(WORKSPACE, "scale_models")
+    written = sorted(os.listdir(models))
+    expected = ["rec_mesh.msgpack", "rec_mesh.msgpack.epoch_2.bak",
+                "rec_mesh.msgpack.epoch_4.bak", "rec_mesh.msgpack.resume",
+                "rec_mesh.msgpack.resume.json"]
+    if written != expected:
+        raise AssertionError(f"train CLI wrote {written}")
+    state = load_checkpoint(os.path.join(models, "rec_mesh.msgpack"))
+    if not all(torch.isfinite(v).all() for v in state.values()):
+        raise AssertionError("the -mesh 1x1 checkpoint is not finite")
+    out["cli_losses"] = losses
+    out["k2_launches_in_training"] = conv_same_nhwc.launches
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def scale_dp_child():
+    """Child: one process of a 2-process NCCL world, one card each: 3 fp32
+    data-parallel steps on the global batch against the meshless
+    Trainer on this card."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from lecturemath_tpu_torch.core.config import Config
+    from lecturemath_tpu_torch.models.fcn_lecturenet import FCNConfig
+    from lecturemath_tpu_torch.parallel.mesh import (
+        MeshSpec, initialize_distributed_from_env, make_mesh,
+        shutdown_distributed, warmup_collectives)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    net_config = FCNConfig.from_config(Config.from_file(
+        os.path.join(WORKSPACE, "smoke.conf")))
+    batch = scale_batch()
+    plain = scale_steps(scale_trainer(net_config, torch.float32, None),
+                        batch)
+    if not initialize_distributed_from_env():
+        raise AssertionError("no world joined under LM_COORDINATOR")
+    mesh = make_mesh(MeshSpec(2, 1))
+    warmup_collectives(mesh)
+    try:
+        meshed = scale_steps(scale_trainer(net_config, torch.float32, mesh),
+                             batch)
+        loss_rel, stat_rel = compare_steps(plain, meshed)
+    finally:
+        shutdown_distributed()
+    print(json.dumps({"rank": mesh.rank, "loss_rel": loss_rel,
+                      "stat_rel": stat_rel, "losses": meshed[0]}),
+          flush=True)
+    return 0
+
+
+def stream_fps(binarizer):
+    """(fps, frames) of one stage-01 stream over the phase-4 lecture."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, frames = binarizer.process_source(make_source())
+    torch.cuda.synchronize()
+    return N_FRAMES / (time.perf_counter() - t0), frames
+
+
+def summary_files(output):
+    """segments.xml without its self-referential <Filename> line, and the
+    keyframe PNGs' bytes, of the express summary under ``output``."""
+    prefix = os.path.join(output, "summaries", "SmokeDB_smoke01")
+    with open(os.path.join(prefix, "segments.xml")) as f:
+        files = {"segments.xml": [line for line in f.read().splitlines()
+                                  if "<Filename>" not in line]}
+    for name in sorted(os.listdir(os.path.join(prefix, "keyframes"))):
+        with open(os.path.join(prefix, "keyframes", name), "rb") as f:
+            files[name] = f.read()
+    return files
+
+
+def phase_scale_out(conf, counters, card):
+    """The data axis on the card; returns (launch counts of the path,
+    numbers)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from lecturemath_tpu_torch.cli import binarize, run_pipeline
+    from lecturemath_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from lecturemath_tpu_torch.pipeline.binarize import Binarizer
+    from lecturemath_tpu_torch.pipeline.driver import PipelineDriver
+
+    config = PipelineDriver.from_config_path(conf, [], None, None).config
+    plain = Binarizer.from_config(config)
+    meshed = Binarizer.from_config(config, mesh=make_mesh(MeshSpec(1, 1)))
+    for binarizer in (plain, meshed):  # cuDNN's choice, the allocator
+        binarizer._packed_fn(torch.from_numpy(np.stack(
+            [make_source().rgb_frame(t) for t in range(8)])).cuda())
+
+    # the scale-out path: the mesh runs' launches count, the meshless
+    # runs' (the comparison) do not
+    inference_launches = {name: 0 for name in counters}
+    fps = {"meshless": [], "mesh": []}
+    frames = {}
+    for which in ("meshless", "mesh", "mesh", "meshless", "meshless", "mesh"):
+        for fn in counters.values():
+            fn.launches = 0
+        rate, got = stream_fps(plain if which == "meshless" else meshed)
+        if which == "mesh":
+            for name, count in counted(counters).items():
+                inference_launches[name] += count
+        fps[which].append(rate)
+        frames.setdefault(which, got)
+    if len(frames["mesh"]) != N_FRAMES or any(
+            not np.array_equal(a, b) for a, b in zip(frames["mesh"],
+                                                     frames["meshless"])):
+        raise AssertionError("the 1x1 mesh's stage-01 frames differ from "
+                             "the meshless Binarizer's")
+    for name in EXPRESS_KERNELS:
+        if inference_launches[name] <= 0:
+            raise AssertionError(f"kernel {name} not launched on the mesh")
+    medians = {k: statistics.median(v) for k, v in fps.items()}
+    log(f"scale-out, one-card 1x1 mesh in-process: stage-01 frames "
+        f"bit-identical to meshless over {N_FRAMES} frames; fps (median of "
+        f"3, stream with host rendering) meshless {medians['meshless']:.2f}"
+        f", mesh {medians['mesh']:.2f} ({json.dumps(fps)}); launches "
+        f"{inference_launches}; on {card}")
+    del plain, meshed
+    torch.cuda.empty_cache()
+
+    # the stage-01 CLI and express: meshless here, -mesh 1x1 in a child
+    # that joins a one-rank NCCL world under the LM_* contract
+    base = open(os.path.join(WORKSPACE, "staged.conf")).read()
+    confs = {}
+    for which in ("meshless", "mesh"):
+        confs[which] = os.path.join(WORKSPACE, f"scale_{which}.conf")
+        with open(confs[which], "w") as f:
+            f.write(base.replace(f"{WORKSPACE}/output",
+                                 f"{WORKSPACE}/scale_{which}"))
+    saved = PipelineDriver.frame_source
+    memory_frames(PipelineDriver)
+    try:
+        for module in (binarize, run_pipeline):
+            module.main([module.__name__, confs["meshless"]])
+    finally:
+        PipelineDriver.frame_source = saved
+    children = {}
+    for name in ("binarize", "run_pipeline"):
+        children[name], = child_results([start_child(
+            f"scale_cli_child({name!r}, {confs['mesh']!r})")],
+            f"{name} -mesh 1x1")
+    artifact = os.path.join("temporal", "tempo_binary_smoke01.dat")
+    with open(os.path.join(WORKSPACE, "scale_meshless", artifact), "rb") as f:
+        single = f.read()
+    with open(os.path.join(WORKSPACE, "scale_mesh", artifact), "rb") as f:
+        if f.read() != single:
+            raise AssertionError("the -mesh 1x1 stage-01 artifact differs "
+                                 "from the meshless CLI's")
+    ours = summary_files(os.path.join(WORKSPACE, "scale_mesh"))
+    if ours != summary_files(os.path.join(WORKSPACE, "scale_meshless")):
+        raise AssertionError("express -mesh 1x1's summary differs from the "
+                             "meshless one's")
+    log(f"scale-out CLIs under LM_* (one-rank NCCL world): binarize -mesh "
+        f"1x1 artifact byte-identical ({len(single)} bytes), express "
+        f"summary identical ({len(ours) - 1} keyframes); walls "
+        f"{json.dumps({k: round(v['wall_s'], 3) for k, v in children.items()})}"
+        f" s; launches {json.dumps({k: v['launches'] for k, v in children.items()})}"
+        f"; on {card}")
+
+    # data-parallel training in a one-rank NCCL world, and a train CLI
+    make_training_set()
+    models = os.path.join(WORKSPACE, "scale_models")
+    os.makedirs(models, exist_ok=True)
+    training = open(os.path.join(WORKSPACE, "training.conf")).read()
+    cli_conf = os.path.join(WORKSPACE, "scale_training.conf")
+    with open(cli_conf, "w") as f:
+        f.write(training.replace(
+            f"{WORKSPACE}/models/rec_pretrain.msgpack",
+            f"{models}/rec_mesh.msgpack").replace(
+            "FCN_BINARIZER_PRETRAIN_REC_EPOCHS = 2",
+            f"FCN_BINARIZER_PRETRAIN_REC_EPOCHS = {SCALE_CLI_EPOCHS}"))
+    train, = child_results([start_child(
+        f"scale_train_child({conf!r}, {cli_conf!r})")], "training")
+    profile = train["profile"]
+    log(f"scale-out training, one-rank NCCL world, batch {TRAIN_BATCH} at "
+        f"256x256, binarizer phase, weighted, clipped: fp32 (TF32 off) "
+        f"losses mesh {train['losses']['mesh']} vs meshless "
+        f"{train['losses']['meshless']} (largest rel {train['loss_rel']:.2e}"
+        f"; running stats {train['stat_rel']:.2e}; bound rtol {SCALE_RTOL},"
+        f" atol {SCALE_ATOL}); bf16 step ms (median of {TIMED_STEPS} after "
+        f"{WARMUP_STEPS}, CUDA events) {json.dumps(train['bf16_step_ms'])}"
+        f"; profiled mesh step at batch {TRAIN_BATCH} "
+        f"{json.dumps(profile)}; train_reconstruction -mesh 1x1 epoch "
+        f"losses {train['cli_losses']}; K2 launches in training "
+        f"{train['k2_launches_in_training']}; on {card}")
+    if train["k2_launches_in_training"]:
+        raise AssertionError("K2 launched in a training forward")
+
+    numbers = {"fps": medians, "bf16_step_ms": train["bf16_step_ms"],
+               "bn_profile": profile, "loss_rel": train["loss_rel"],
+               "stat_rel": train["stat_rel"],
+               "cli_walls_s": {k: v["wall_s"] for k, v in children.items()}}
+    if torch.cuda.device_count() >= 2:
+        numbers["two_cards"] = two_card_checks(config, card)
+    else:
+        log(f"scale-out: the 2-card checks (inference over 2 cards, a "
+            f"2-process NCCL training) were NOT run: this machine has "
+            f"{torch.cuda.device_count()} card")
+    launches = dict(inference_launches)
+    for child in children.values():
+        for name, count in child["launches"].items():
+            launches[name] = launches.get(name, 0) + count
+    return launches, numbers
+
+
+def two_card_checks(config, card):
+    """Inference over 2 cards in-process and a 2-process NCCL training."""
+    import numpy as np
+
+    from lecturemath_tpu_torch.parallel.launch import free_port
+    from lecturemath_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from lecturemath_tpu_torch.pipeline.binarize import Binarizer
+
+    plain = Binarizer.from_config(config)
+    two = Binarizer.from_config(config, mesh=make_mesh(MeshSpec(2, 1)))
+    rates = {"meshless": [], "2 cards": []}
+    frames = {}
+    for which, binarizer in (("meshless", plain), ("2 cards", two),
+                             ("2 cards", two), ("meshless", plain)):
+        rate, frames[which] = stream_fps(binarizer)
+        rates[which].append(rate)
+    flips = float(np.mean([np.mean(a != b) for a, b in zip(
+        frames["2 cards"], frames["meshless"])]))
+    if flips > MAX_FLIP_RATE:
+        raise AssertionError(f"2-card stage-01 flip rate {flips}")
+    port = free_port()
+    results = child_results([start_child("scale_dp_child()", world=2,
+                                       rank=rank, port=port,
+                                       visible=str(rank))
+                             for rank in range(2)], "2-process training")
+    log(f"scale-out on 2 cards: stage-01 fps {json.dumps(rates)}, flip rate "
+        f"vs meshless {flips:.2e}; 2-process NCCL training "
+        f"{json.dumps(results)}; on {card}")
+    return {"fps": rates, "flip_rate": flips, "training": results}
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "lecturemath_tpu_torch")):
         print("chip_smoke.py: lecturemath_tpu_torch not found beside this "
@@ -2750,6 +3279,8 @@ def main():
     training = {}
     evaluation_launches = {}
     evaluation = {}
+    scale_launches = {}
+    scale = {}
     try:
         conf, _ = make_workspace()
         try:
@@ -2787,6 +3318,12 @@ def main():
         except Exception:  # noqa: BLE001 — report every phase, then fail
             traceback.print_exc()
             failures.append("evaluation path")
+        torch.cuda.empty_cache()
+        try:
+            scale_launches, scale = phase_scale_out(conf, counters, card)
+        except Exception:  # noqa: BLE001 — report every phase, then fail
+            traceback.print_exc()
+            failures.append("scale-out path")
     except Exception:  # noqa: BLE001 — report every phase, then fail
         traceback.print_exc()
         failures.append("workspace")
@@ -2806,7 +3343,8 @@ def main():
                 "staged": staged_launches.get(name, 0),
                 "serving": serving_launches.get(name, 0),
                 "training": training_launches.get(name, 0),
-                "evaluation": evaluation_launches.get(name, 0)}
+                "evaluation": evaluation_launches.get(name, 0),
+                "scale_out": scale_launches.get(name, 0)}
     for key in SERVING_KERNELS:
         if key in records and serving:
             device_us = {bucket: numbers["device_us"]
@@ -2830,6 +3368,8 @@ def main():
             {"keyframes_per_s": evaluation["keyframes_per_s"],
              "wall_s": evaluation["walls"], "host_s": evaluation["host_s"],
              "flip_rate": evaluation["flip_rate"]}))
+    if scale:
+        log(f"scale-out on {card}: " + json.dumps(scale))
     log(f"express {summary.get('fps', 0):.2f} fps on {card}")
     log(card)
     log(json.dumps({"kernels": list(records.values())}))

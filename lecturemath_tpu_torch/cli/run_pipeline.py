@@ -3,7 +3,12 @@ inter-stage PNG pickle relay. Stage 01 runs on the card unless
 ``-device cpu`` is given.
 
 Usage: python -m lecturemath_tpu_torch.cli.run_pipeline <config>
-[-l lecture] [-d dataset] [-shard i/n] [-save 1] [-device cpu]
+[-l lecture] [-d dataset] [-shard i/n] [-save 1] [-mesh D] [-device cpu]
+
+``-mesh D`` / TPU_MESH shard stage 01's frames over D devices, and the
+LM_* env contract joins the processes of several hosts, as for the stage-01
+CLI (cli/binarize.py); ``-mesh DxM`` with M > 1 raises (ROADMAP queue 1,
+item 10b).
 """
 
 import sys
@@ -11,6 +16,7 @@ import sys
 from ..pipeline.binarize import Binarizer
 from ..pipeline.driver import PipelineDriver, usage_check
 from ..pipeline.express import check_no_device_worker, driver_device, run_lecture
+from .binarize import resolve_mesh
 
 
 def main(argv=None):
@@ -19,17 +25,30 @@ def main(argv=None):
         return
 
     driver = PipelineDriver.from_config_path(argv[1], argv[2:], None, None)
-    check_no_device_worker(driver.config)
-    binarizer = Binarizer.from_config(driver.config,
-                                      device=driver_device(driver))
-    save_artifacts = str(driver.params.get("save", "0")) == "1"
+    from ..parallel.mesh import shutdown_distributed
 
-    for lecture in driver.iter_lectures():
-        with driver.timer.measure(lecture.title):
-            indices, times, keyframes = run_lecture(
-                driver, lecture, binarizer, save_artifacts=save_artifacts)
-        print(f"{lecture.title}: {len(keyframes)} keyframes in "
-              f"{driver.timer.totals[lecture.title]:.2f}s")
+    device = driver_device(driver)
+    # finally: a process that fails mid-run still joins the shutdown
+    # barrier its peers wait at
+    try:
+        mesh = resolve_mesh(driver.params, driver.config, device)
+        if mesh is None:
+            # the JAX CLI takes the recycled device worker only without a
+            # mesh; the port has no worker yet
+            check_no_device_worker(driver.config)
+        binarizer = Binarizer.from_config(driver.config, device=device,
+                                          mesh=mesh)
+        save_artifacts = str(driver.params.get("save", "0")) == "1"
+
+        for lecture in driver.iter_lectures():
+            with driver.timer.measure(lecture.title):
+                indices, times, keyframes = run_lecture(
+                    driver, lecture, binarizer,
+                    save_artifacts=save_artifacts)
+            print(f"{lecture.title}: {len(keyframes)} keyframes in "
+                  f"{driver.timer.totals[lecture.title]:.2f}s")
+    finally:
+        shutdown_distributed()
     print("Finished")
 
 

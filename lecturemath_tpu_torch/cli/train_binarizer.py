@@ -1,11 +1,20 @@
 """Final phase: train the binarizer on annotated keyframe/binary-GT pairs.
 
 Usage: python -m lecturemath_tpu_torch.cli.train_binarizer <config>
-[dataset] [-device cpu]
+[dataset] [-device cpu] [-mesh D]
 (reference equivalent: lecturenet_train_02_train_binarizer.py.) Trains on
-the card unless ``-device cpu`` is given; without a card it raises. A
-``-mesh`` / TPU_MESH request for more than one device raises (ROADMAP
-queue 1, item 10).
+the card unless ``-device cpu`` is given; without a card it raises.
+
+``-mesh D`` / TPU_MESH trains data-parallel over D devices, one process a
+device: without LM_COORDINATOR this process starts D workers of itself on
+this host (parallel/launch.py), each on one card through
+CUDA_VISIBLE_DEVICES (or on the CPU with ``-device cpu``), and exits with
+the first non-zero code of theirs; under the LM_* contract (a process per
+card on each host) it joins that world. Only process 0 writes the
+checkpoints, ``.bak`` files and resume file, the others waiting at a
+barrier: unlike the JAX package, whose processes each write the same
+bytes, processes sharing one file system would tear the file. ``-mesh
+DxM`` with M > 1 raises (ROADMAP queue 1, item 10b).
 """
 
 import os
@@ -14,6 +23,7 @@ import sys
 from ..core.backend_probe import ensure_backend
 from ..core.config import Config, parse_cli_overrides
 from ..core.metadata import MetaDataDB
+from ..parallel.launch import launch_if_needed
 from ..parallel.mesh import mesh_spec_from, shutdown_distributed
 from ..train.dataset import LectureNetDataset
 from ..train.trainer import run_phase
@@ -53,8 +63,11 @@ def main(argv=None):
 
     params = parse_cli_overrides(argv[2:])
     device = params.get("device")
-    ensure_backend(device=device)
     config = Config.from_file(argv[1])
+    mesh_spec = mesh_spec_from(params, config)
+    if launch_if_needed(__spec__.name, argv, mesh_spec, device):
+        return
+    ensure_backend(device=device)
     dataset_name = (argv[2] if len(argv) > 2
                     and not argv[2].startswith("-") else "training")
     database = MetaDataDB.from_file(config.get_str("VIDEO_DATABASE_PATH"))
@@ -84,7 +97,7 @@ def main(argv=None):
     try:
         out = run_phase(config, "binarizer", dataset, warm_start_path=warm_start,
                         warm_start_is_reconstruction=from_reconstruction,
-                        mesh_spec=mesh_spec_from(params, config),
+                        mesh_spec=mesh_spec,
                         device=device)
     finally:
         shutdown_distributed()

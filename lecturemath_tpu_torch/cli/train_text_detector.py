@@ -1,11 +1,21 @@
 """TD-PT: pretrain all three branches on text-detection data.
 
 Usage: python -m lecturemath_tpu_torch.cli.train_text_detector <config>
-[-device cpu]
+[-device cpu] [-mesh D]
 (reference equivalent: lecturenet_train_01_pretrain_text_detector.py.)
 Trains on the card unless ``-device cpu`` is given; without a card it
-raises. A ``-mesh`` / TPU_MESH request for more than one device raises
-(ROADMAP queue 1, item 10).
+raises.
+
+``-mesh D`` / TPU_MESH trains data-parallel over D devices, one process a
+device: without LM_COORDINATOR this process starts D workers of itself on
+this host (parallel/launch.py), each on one card through
+CUDA_VISIBLE_DEVICES (or on the CPU with ``-device cpu``), and exits with
+the first non-zero code of theirs; under the LM_* contract (a process per
+card on each host) it joins that world. Only process 0 writes the
+checkpoints, ``.bak`` files and resume file, the others waiting at a
+barrier: unlike the JAX package, whose processes each write the same
+bytes, processes sharing one file system would tear the file. ``-mesh
+DxM`` with M > 1 raises (ROADMAP queue 1, item 10b).
 """
 
 import os
@@ -13,6 +23,7 @@ import sys
 
 from ..core.backend_probe import ensure_backend
 from ..core.config import Config, parse_cli_overrides
+from ..parallel.launch import launch_if_needed
 from ..parallel.mesh import mesh_spec_from, shutdown_distributed
 from ..train.dataset import LectureNetDataset, find_image_mask_pairs
 from ..train.trainer import run_phase
@@ -26,8 +37,11 @@ def main(argv=None):
 
     params = parse_cli_overrides(argv[2:])
     device = params.get("device")
-    ensure_backend(device=device)
     config = Config.from_file(argv[1])
+    mesh_spec = mesh_spec_from(params, config)
+    if launch_if_needed(__spec__.name, argv, mesh_spec, device):
+        return
+    ensure_backend(device=device)
     images, masks = find_image_mask_pairs(
         config.get_str("FCN_BINARIZER_PRETRAIN_IMAGES_DIR"),
         config.get_str("FCN_BINARIZER_PRETRAIN_MASKS_DIR"))
@@ -55,7 +69,7 @@ def main(argv=None):
         out = run_phase(config, "text_detector", dataset,
                         warm_start_path=warm_start,
                         warm_start_is_reconstruction=True,
-                        mesh_spec=mesh_spec_from(params, config),
+                        mesh_spec=mesh_spec,
                         device=device)
     finally:
         shutdown_distributed()

@@ -161,6 +161,9 @@ class FCNLectureNet(nn.Module):
         # the weights it was packed from
         self._head_packs: Dict[str, Tuple[tuple, Tuple[torch.Tensor,
                                                        torch.Tensor]]] = {}
+        # a process group: every BatchNorm in training mode normalizes over
+        # the group's global batch (parallel/sync_norm.py); None: local
+        self.bn_group = None
 
     def _apply(self, fn, *args, **kwargs):
         # .to, .cuda, .half and the like make new weight tensors, which the
@@ -217,9 +220,17 @@ class FCNLectureNet(nn.Module):
     def _bn_act(self, norm: nn.Module, y: torch.Tensor,
                 activation: Optional[Callable] = None) -> torch.Tensor:
         """BatchNorm (Identity once folded) in ``bn_dtype``, then the
-        activation, back in the compute dtype."""
+        activation, back in the compute dtype. A BatchNorm in training mode
+        of a model with a ``bn_group`` is cross-replica."""
         dt = y.dtype
-        y = norm(y.to(self._bn_dtype or dt))
+        y = y.to(self._bn_dtype or dt)
+        if self.bn_group is not None and isinstance(norm, nn.BatchNorm2d) \
+                and norm.training:
+            from ..parallel.sync_norm import cross_replica_batch_norm
+
+            y = cross_replica_batch_norm(norm, y, self.bn_group)
+        else:
+            y = norm(y)
         if activation is not None:
             y = activation(y)
         return y.to(dt)

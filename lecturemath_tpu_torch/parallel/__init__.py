@@ -1,2 +1,4 @@
-"""Scale-out helpers. Only the host-side lecture work queue is ported so far;
-mesh sharding over several cards is later work."""
+"""Scale-out: device meshes over the data axis (cards and processes), the
+cross-replica BatchNorm, frame-sharded inference, the local launch of the
+training CLIs, and the host-side lecture work queue."""
+from .mesh import MeshSpec, make_mesh, shard_params, shard_batch

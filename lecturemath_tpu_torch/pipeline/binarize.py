@@ -6,6 +6,11 @@ the device. Each bitmap is copied into reused pinned host memory on a side
 stream, so the copy of batch k overlaps the compute of batch k+1, and the
 host unpacks it when the copy's CUDA event has fired.
 
+With a mesh (``-mesh D``), each batch splits by rows over one replica of
+the model per local card, and across the processes of a world, each
+process receiving every frame (parallel/inference.py); the output is the
+same as without one.
+
 Polarity: the raw model output follows the training GT (ink=0 on a 255
 background); the stage artifact is inverted to ink=255 exactly like the
 reference worker (FCN_lecturenet_binarizer.py:54) so downstream CC labeling
@@ -28,6 +33,8 @@ from ..models.convert import load_checkpoint
 from ..models.fcn_lecturenet import (FCNConfig, FCNLectureNet, fold_model,
                                      init_weights, make_binarizer,
                                      make_packed_binarizer, unpack_bits_host)
+from ..parallel.inference import pad_rows, sharded_forward
+from ..parallel.mesh import check_mesh, process_count, replicate
 from ..utils.image import halve_lanczos, resize_area, resize_nearest
 from .video import VideoFrameSource
 
@@ -286,32 +293,57 @@ class Binarizer:
 
         ``async_drain`` (default on): unpack stream results on a background
         thread so they overlap the consumer's host work between batches
-        (see _AsyncDrainer). Yield order and values are identical. Config:
-        STREAM_ASYNC_DRAIN.
+        (see _AsyncDrainer). Yield order and values are identical. Forced
+        off in a world of several processes: the gather of every process's
+        rows is a collective and must keep the processes' program order.
+        Config: STREAM_ASYNC_DRAIN.
 
-        ``mesh``: frame sharding over several cards is not ported yet and
-        raises."""
+        ``mesh`` (parallel/mesh.py ``make_mesh``; data axis only): one
+        replica of the model per local device of the mesh, which replaces
+        ``device``; each batch's rows split over them and over the world's
+        processes (every process passes the same frames and receives all
+        of them). ``batch_size`` rounds up to a multiple of the data axis,
+        a ragged batch is padded with its last frame and cropped back."""
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh sharding over several cards is not ported yet "
-                "(ROADMAP queue 1, item 10)")
-        self.device = resolve_device(device)
+            check_mesh(mesh)
+            if device is not None and \
+                    torch.device(device).type != mesh.device.type:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"({mesh.device.type})")
+            self.device = mesh.device
+        else:
+            self.device = resolve_device(device)
         if fold_bn and not model.fold_bn:
             model = fold_model(model)
         model = model.to(device=self.device, dtype=dtype or model.dtype,
                          memory_format=torch.channels_last).eval()
-        if self.device.type == "cuda" and not model.plain:
-            model.pack_heads()  # K2's packed weights, once per model
+        self._replicas = (replicate(mesh, model) if mesh is not None
+                          else [model])
+        for replica in self._replicas:
+            device_of = replica.mid_block[0].weight.device
+            if device_of.type == "cuda" and not replica.plain:
+                # K2's packed weights, once per replica on its card
+                with torch.cuda.device(device_of):
+                    replica.pack_heads()
         self.model = model
-        self.mesh = None
+        self.mesh = mesh
+        if mesh is not None and batch_size is not None:
+            data_size = mesh.shape["data"]
+            batch_size = -(-batch_size // data_size) * data_size
         self.batch_size = batch_size
         self.force_binary = force_binary
         self.threshold = threshold
         if pipeline_depth is None:
             pipeline_depth = 2
         self.pipeline_depth = max(1, pipeline_depth)
-        self._binarize_fn = make_binarizer(model, force_binary=force_binary,
-                                           threshold=threshold)
+        self._binarize_fns = [make_binarizer(replica,
+                                             force_binary=force_binary,
+                                             threshold=threshold)
+                              for replica in self._replicas]
+        self._binarize_fn = self._binarize_fns[0]
+        # the binary output alone, of every replica
+        self._binary_fns = [lambda x, fn=fn: fn(x)[0]
+                            for fn in self._binarize_fns]
         if not force_binary:
             upload_format = "rgb"  # full-output path stays RGB
         elif upload_format == "auto":
@@ -328,14 +360,30 @@ class Binarizer:
         self.downscale = downscale
         self.downscale_filter = downscale_filter
         self.max_model_pixels = max_model_pixels
-        self.async_drain = True if async_drain is None else bool(async_drain)
+        self.async_drain = ((True if async_drain is None
+                             else bool(async_drain))
+                            and process_count() == 1)
+        self._packed_fn = None
+        self._packed_fn_key = None
         if force_binary:
-            self._packed_fn = make_packed_binarizer(
-                model, threshold=threshold, input_format=upload_format)
-            self._packed_fn_key = (upload_format, 0)
-        else:
-            self._packed_fn = None
-            self._packed_fn_key = None
+            self._make_packed(upload_format, 0)
+
+    def _make_packed(self, input_format: str, pre_halvings: int) -> None:
+        """The packed batch function of every replica (``_packed_fn``: the
+        first's)."""
+        self._packed_fns = [make_packed_binarizer(
+            replica, threshold=self.threshold, input_format=input_format,
+            pre_halvings=pre_halvings) for replica in self._replicas]
+        self._packed_fn = self._packed_fns[0]
+        self._packed_fn_key = (input_format, pre_halvings)
+
+    def _run(self, fns, frames: np.ndarray) -> torch.Tensor:
+        """The batch function ``fns[k]`` of replica k over ``frames`` (rows
+        a multiple of the data axis under a mesh): the output of every row,
+        on ``self.device``."""
+        if self.mesh is None:
+            return fns[0](self._to_device(frames))
+        return sharded_forward(self.mesh, fns, frames)
 
     @classmethod
     def from_config(cls, config: Config, allow_random: bool = False,
@@ -411,8 +459,10 @@ class Binarizer:
     def binarize_frames(self, frames: np.ndarray) -> np.ndarray:
         """uint8 RGB [B, H, W, 3] -> uint8 binary [B, H, W] in the raw model
         polarity (a trained model emits ink=0 on a 255 background)."""
-        binary, _, _ = self._binarize_fn(self._to_device(frames))
-        return self._fetch(binary)
+        n = len(frames)
+        if self.mesh is not None:
+            frames = pad_rows(np.asarray(frames), self.mesh.shape["data"])
+        return self._fetch(self._run(self._binary_fns, frames))[:n]
 
     def stream_source(self, source: VideoFrameSource, frames_limit: int = 0,
                       invert: bool = True):
@@ -486,12 +536,8 @@ class Binarizer:
                     if use_packed and \
                             self._packed_fn_key != (self.upload_format,
                                                     device_halvings):
-                        self._packed_fn = make_packed_binarizer(
-                            self.model, threshold=self.threshold,
-                            input_format=self.upload_format,
-                            pre_halvings=device_halvings)
-                        self._packed_fn_key = (self.upload_format,
-                                               device_halvings)
+                        self._make_packed(self.upload_format,
+                                          device_halvings)
 
                 frames = batch.frames
                 if model_size != full_size and not device_halvings:
@@ -508,10 +554,8 @@ class Binarizer:
                     stats["source_s"] += pc() - t0
 
                 t0 = pc()
-                if use_packed:
-                    result = self._packed_fn(self._to_device(frames))
-                else:
-                    result, _, _ = self._binarize_fn(self._to_device(frames))
+                result = self._run(self._packed_fns if use_packed else
+                                   self._binary_fns, frames)
                 handle = copies.start(result)
                 stats["dispatch_s"] += pc() - t0
                 if drainer is not None:
@@ -567,9 +611,13 @@ class Binarizer:
                 return
             h, w = first[2].shape[:2]
             mw, mh = resolve_model_size(w, h, self.max_model_pixels)
-            batch_size = default_batch_size(mw, mh, self.device)
+            # each device of the data axis takes a batch its memory holds
+            batch_size = default_batch_size(mw, mh, self.device) * (
+                1 if self.mesh is None else self.mesh.shape["data"])
             print(f"Stage 01: batch size {batch_size} for {mw}x{mh} frames "
-                  f"on {self.device}")
+                  f"on {self.device}"
+                  + ("" if self.mesh is None else
+                     f", {self.mesh.shape['data']}-way data axis"))
             self.batch_size = batch_size
 
             import itertools

@@ -57,8 +57,7 @@ import torch
 
 from .. import native
 from ..core.backend_probe import BackendUnavailable
-from ..models.fcn_lecturenet import (make_packed_binarizer,
-                                     rgb_to_yuv420_host, unpack_bits_host)
+from ..models.fcn_lecturenet import rgb_to_yuv420_host, unpack_bits_host
 from ..ops.conv7 import conv_same_nhwc
 from ..ops.postprocess import threshold_pack
 from ..utils.image import resize_area, resize_nearest
@@ -239,8 +238,7 @@ class BinarizeService:
             width, height = self.model_size
             if width % 2 or height % 4:
                 binarizer.upload_format = "rgb"
-                binarizer._packed_fn = make_packed_binarizer(
-                    binarizer.model, threshold=binarizer.threshold)
+                binarizer._make_packed("rgb", 0)
         return _Resident(binarizer, use_packed, self.use_graphs,
                          self._capture_lock)
 

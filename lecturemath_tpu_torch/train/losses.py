@@ -22,41 +22,58 @@ import torch
 import torch.nn.functional as F
 
 
+def weighted_mean(loss: torch.Tensor, weights: Optional[torch.Tensor],
+                  group=None) -> torch.Tensor:
+    """mean(loss), or sum(w*l) / max(sum(w), 1). With a process ``group``
+    the weighted ratio is over the GLOBAL batch: the numerator and the
+    denominator are all-reduced (autograd-aware, so every rank's gradient
+    is the global loss's times the world size, which the trainer's
+    gradient average divides back out). The plain mean stays local: equal
+    row counts make the average of the ranks' means the global mean."""
+    if weights is None:
+        return loss.mean()
+    parts = torch.stack([(loss * weights).sum(), weights.sum()])
+    if group is not None:
+        from ..parallel.sync_norm import all_reduce_sum
+
+        parts = all_reduce_sum(parts, group)
+    return parts[0] / torch.clamp(parts[1], min=1.0)
+
+
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
-                    weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    weights: Optional[torch.Tensor] = None,
+                    group=None) -> torch.Tensor:
     """optax's ``sigmoid_binary_cross_entropy`` in f32, -t log σ(x) -
-    (1 - t) log σ(-x), mean or weighted mean."""
+    (1 - t) log σ(-x), mean or weighted mean (``weighted_mean``)."""
     x = logits.float()
     t = targets.float()
     loss = -t * F.logsigmoid(x) - (1.0 - t) * F.logsigmoid(-x)
-    if weights is not None:
-        loss = loss * weights
-        return loss.sum() / torch.clamp(weights.sum(), min=1.0)
-    return loss.mean()
+    return weighted_mean(loss, weights, group)
 
 
 def masked_mse(pred: torch.Tensor, target: torch.Tensor,
-               weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+               weights: Optional[torch.Tensor] = None,
+               group=None) -> torch.Tensor:
     err = torch.square(pred.float() - target.float())
-    if weights is not None:
-        err = err * weights
-        return err.sum() / torch.clamp(weights.sum(), min=1.0)
-    return err.mean()
+    return weighted_mean(err, weights, group)
 
 
 def phase_losses(phase: str, outputs, batch: Dict[str, torch.Tensor],
-                 use_weights: bool = False) -> Dict[str, torch.Tensor]:
+                 use_weights: bool = False,
+                 group=None) -> Dict[str, torch.Tensor]:
     """Compute the per-term loss dict for a training phase.
 
     ``outputs`` is the model output: reconstruction for phase 'reconstruction',
-    (bin_logits, text_logits, rec) otherwise.
+    (bin_logits, text_logits, rec) otherwise. ``group``: the process group
+    of a data-parallel run, over whose global batch weighted terms are
+    taken (``weighted_mean``).
     """
     weights = batch.get("weights") if use_weights else None
 
     if phase == "reconstruction":
         rec = outputs
         target = batch.get("median", batch["target"])
-        return {"mse": masked_mse(rec, target, weights)}
+        return {"mse": masked_mse(rec, target, weights, group)}
 
     bin_logits, text_logits, rec = outputs
     terms: Dict[str, torch.Tensor] = {}
@@ -66,16 +83,19 @@ def phase_losses(phase: str, outputs, batch: Dict[str, torch.Tensor],
         # text-region mask (reference: lecturenet_train_01:171-182 —
         # mask_loss uses `labels`, binary_loss uses `text_mask`)
         terms["text_bce"] = bce_with_logits(text_logits, batch["target"],
-                                            weights)
+                                            weights, group)
         terms["bin_bce"] = bce_with_logits(bin_logits, batch["text_mask"],
-                                           weights)
+                                           weights, group)
         if "median" in batch:
-            terms["rec_mse"] = masked_mse(rec, batch["median"], weights)
+            terms["rec_mse"] = masked_mse(rec, batch["median"], weights,
+                                          group)
     elif phase == "binarizer":
-        terms["bin_bce"] = bce_with_logits(bin_logits, batch["target"], weights)
+        terms["bin_bce"] = bce_with_logits(bin_logits, batch["target"],
+                                           weights, group)
         if "text_mask" in batch:
             terms["text_bce"] = bce_with_logits(text_logits,
-                                                batch["text_mask"], weights)
+                                                batch["text_mask"], weights,
+                                                group)
     else:
         raise ValueError(f"unknown phase: {phase}")
 

@@ -1,4 +1,5 @@
-"""Training loop for FCN-LectureNet on one card (or the CPU when asked).
+"""Training loop for FCN-LectureNet on one card (or the CPU when asked),
+or data-parallel over a mesh of processes, one card each.
 
 Reference training surface (lecturenet_train_00/01/02): SGD (momentum 0)
 with per-phase learning rates/epochs from config, periodic backup
@@ -18,7 +19,14 @@ Options that carry over:
   * ``clip_norm``: optax's ``clip_by_global_norm``, g / |g| * c where |g| >=
     c (not ``clip_grad_norm_``, which divides by |g| + 1e-6);
   * mixed precision: the model's ``compute_dtype`` (bf16) over f32 master
-    weights, BN in f32 unless TRAIN_BN_DTYPE = bf16 (``run_phase``).
+    weights, BN in f32 unless TRAIN_BN_DTYPE = bf16 (``run_phase``);
+  * a data-axis mesh (``-mesh D``, parallel/mesh.py): every process builds
+    the same seeded global batch and trains on its rows
+    (``local_row_slice``); live BatchNorms normalize over the global batch
+    (parallel/sync_norm.py), weighted loss terms are global ratios
+    (train/losses.py), gradients are all-reduced and averaged before the
+    clip, so every process takes the same step the JAX package's
+    data-sharded step takes.
 
 The heads train through ``F.conv2d`` (kernel K2 has no backward;
 ``FCNLectureNet._head``). The JAX package's space-to-depth layouts
@@ -42,7 +50,9 @@ from ..core.device import resolve_device
 from ..models.convert import load_checkpoint, save_checkpoint
 from ..models.fcn_lecturenet import (FCNConfig, FCNLectureNet,
                                      fold_batch_norms, init_weights)
-from ..parallel.mesh import MeshSpec, check_single_device
+from ..parallel.mesh import (Mesh, MeshSpec, check_mesh,
+                             initialize_distributed_from_env, make_mesh,
+                             mesh_devices, process_rows, warmup_collectives)
 from .losses import phase_losses
 
 _DTYPES = {"fp32": torch.float32, "float32": torch.float32,
@@ -66,18 +76,43 @@ class Trainer:
                  use_weights: bool = False, freeze_bn: bool = False,
                  clip_norm: Optional[float] = None,
                  fold_frozen_bn: bool = False, prefetch_depth: int = 2,
-                 device: Union[None, str, torch.device] = None):
+                 device: Union[None, str, torch.device] = None,
+                 mesh: Optional[Mesh] = None):
         """``model`` moves to ``device`` (``cuda`` unless the caller asks
         for ``cpu``) in ``channels_last`` memory; its parameters are the
         f32 master weights. ``prefetch_depth`` batches are prepared and
         uploaded ahead on a producer thread (train/prefetch.py); 0 loads
-        synchronously."""
+        synchronously.
+
+        ``mesh``: a data-axis mesh with one device in this process (one
+        card a process), which replaces ``device``. In a joined
+        ``torch.distributed`` world the steps are data-parallel over it;
+        without one (a 1x1 mesh in a single process) they are the plain
+        steps."""
         if fold_frozen_bn and not freeze_bn:
             raise ValueError("fold_frozen_bn requires freeze_bn (the fold "
                              "is only exact with frozen stats)")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self._group = None
+        if mesh is not None:
+            check_mesh(mesh)
+            if len(mesh.local_devices) != 1:
+                raise ValueError(
+                    f"data-parallel training drives one device a process, "
+                    f"and this process holds {len(mesh.local_devices)} of "
+                    f"the mesh: start one process a card (the training "
+                    f"CLIs do so for -mesh D without LM_COORDINATOR; "
+                    f"across hosts set CUDA_VISIBLE_DEVICES per process)")
+            import torch.distributed as dist
+
+            if dist.is_available() and dist.is_initialized():
+                self._group = dist.group.WORLD
+            self.device = mesh.device
+        else:
+            self.device = resolve_device(device)
         self.model = model.to(self.device,
                               memory_format=torch.channels_last)
+        self.model.bn_group = self._group
         self.phase = phase
         self.use_weights = use_weights
         self.freeze_bn = freeze_bn
@@ -107,7 +142,10 @@ class Trainer:
     def to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str,
                                                                  torch.Tensor]:
         """NHWC numpy batch -> NCHW tensors on the device, channels_last
-        (pinned and copied asynchronously to a card)."""
+        (pinned and copied asynchronously to a card). Under a mesh the
+        batch is the global one, and this process keeps its rows."""
+        if self.mesh is not None:
+            batch = process_rows(self.mesh, batch)
         out = {}
         for key, value in batch.items():
             tensor = torch.from_numpy(np.ascontiguousarray(value))
@@ -138,15 +176,52 @@ class Trainer:
         self.optimizer.zero_grad(set_to_none=True)
         outputs = self.forward(batch["image"].contiguous(
             memory_format=torch.channels_last))
-        terms = phase_losses(self.phase, outputs, batch, self.use_weights)
+        terms = phase_losses(self.phase, outputs, batch, self.use_weights,
+                             self._group)
         total = sum(terms.values())
         total.backward()
+        metrics = dict(terms, total=total)
+        if self._group is not None:
+            self._average_gradients()
+            metrics = self._global_means(metrics)
         if self.clip_norm is not None:
             clip_by_global_norm_(self.model.parameters(), self.clip_norm)
         self.optimizer.step()
         self.step_count += 1
-        return {key: value.detach()
-                for key, value in dict(terms, total=total).items()}
+        return {key: value.detach() for key, value in metrics.items()}
+
+    def _average_gradients(self) -> None:
+        """All-reduce every gradient in one flat buffer and divide by the
+        world size: each process then holds the gradient of the global
+        loss (see train/losses.py for the weighted terms)."""
+        import torch.distributed as dist
+
+        # each gradient's memory as a flat view (channels_last ones too):
+        # one cat, one all-reduce and one multi-tensor copy back
+        views = []
+        for p in self.model.parameters():
+            g = p.grad
+            if g is None:
+                continue
+            if not (g.is_contiguous() or g.is_contiguous(
+                    memory_format=torch.channels_last)):
+                g = p.grad = g.contiguous()
+            views.append(g.as_strided((g.numel(),), (1,)))
+        flat = torch.cat(views)
+        dist.all_reduce(flat, group=self._group)
+        flat.div_(dist.get_world_size(self._group))
+        torch._foreach_copy_(views, flat.split([v.numel() for v in views]))
+
+    def _global_means(self, metrics: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+        """Each loss term averaged over the processes: the global batch's
+        value (a weighted term is already global on every process)."""
+        import torch.distributed as dist
+
+        values = torch.stack([v.detach() for v in metrics.values()])
+        dist.all_reduce(values, group=self._group)
+        values.div_(dist.get_world_size(self._group))
+        return dict(zip(metrics, values))
 
     def train_epoch(self, dataset, batch_size: int) -> Dict[str, float]:
         """One pass over ``dataset.batches(batch_size)``; the mean of each
@@ -278,6 +353,13 @@ def run_phase(config: Config, phase_name: str, dataset,
     checkpoints and a resume file, save the final state to the phase's
     configured output path. Runs on ``device``: ``cuda`` unless the caller
     passes ``cpu``.
+
+    ``mesh_spec``: data-parallel training over a mesh, one device a
+    process, the processes joined under the LM_* env contract
+    (``initialize_distributed_from_env``). Only process 0 writes the
+    checkpoints, the ``.bak`` files and the resume file; the others wait
+    at a barrier (the JAX package's processes each write the same bytes,
+    which processes sharing one file system would tear).
     """
     spec = PHASES[phase_name]
     net_config = FCNConfig.from_config(config)
@@ -297,8 +379,13 @@ def run_phase(config: Config, phase_name: str, dataset,
             f"{warm_start_path} — run the pretraining phase first or unset "
             "the USE_*_OUTPUT config key")
     device = resolve_device(device)
-    check_single_device(mesh_spec, torch.cuda.device_count()
-                        if device.type == "cuda" else 1)
+    mesh = None
+    if mesh_spec is not None:
+        # after the warm-start check: a process missing the file fails
+        # before its peers wait for it in a collective
+        initialize_distributed_from_env(device)
+        mesh = make_mesh(mesh_spec, mesh_devices(device, mesh_spec))
+        warmup_collectives(mesh)
 
     lr = config.get_float(spec.lr_key, spec.default_lr)
     epochs = epochs_override or config.get_int(spec.epochs_key,
@@ -338,7 +425,16 @@ def run_phase(config: Config, phase_name: str, dataset,
                       fold_frozen_bn=frozen_fast,
                       prefetch_depth=config.get_int("TRAIN_PREFETCH_BATCHES",
                                                     2),
-                      device=device)
+                      device=device, mesh=mesh)
+
+    def write(save) -> None:
+        """``save()`` on process 0 only; the others wait until it is done."""
+        if mesh is None or mesh.rank == 0:
+            save()
+        if mesh is not None and mesh.world_size > 1:
+            import torch.distributed as dist
+
+            dist.barrier()
 
     out_path = config.get_str(spec.output_key,
                               f"models/lecturenet_{phase_name}.msgpack")
@@ -360,10 +456,13 @@ def run_phase(config: Config, phase_name: str, dataset,
             printable = ", ".join(f"{k}={v:.5f}" for k, v in metrics.items())
             print(f"[{phase_name}] epoch {epoch + 1}/{epochs}: {printable}")
         if (epoch + 1) % spec.backup_every == 0:
-            trainer.save(out_path + f".epoch_{epoch + 1}.bak")
-            trainer.save_resume_checkpoint(resume_path)
-            with open(meta_path, "w") as f:
-                json.dump({"completed_epochs": epoch + 1}, f)
+            def backup(epoch=epoch):
+                trainer.save(out_path + f".epoch_{epoch + 1}.bak")
+                trainer.save_resume_checkpoint(resume_path)
+                with open(meta_path, "w") as f:
+                    json.dump({"completed_epochs": epoch + 1}, f)
 
-    trainer.save(out_path)
+            write(backup)
+
+    write(lambda: trainer.save(out_path))
     return out_path

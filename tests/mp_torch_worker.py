@@ -1,0 +1,57 @@
+"""Worker process for tests/test_torch_multiprocess.py: one process of a
+2-process gloo world of the port (one CPU device each, a 2x1 mesh; two
+each for a 4x1 mesh). It runs the sharded Binarizer on both meshes, the cross-replica BatchNorm on its half of a
+batch, and the three data-parallel training cases of
+tests/_torch_mp_workload.py and saves what it got to LM_OUT_PATH (.npz).
+
+Launched as a subprocess, NOT a pytest module. Env contract:
+LM_COORDINATOR, LM_NUM_PROCESSES, LM_PROCESS_ID, LM_OUT_PATH.
+"""
+
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+
+from lecturemath_tpu_torch.parallel.mesh import (  # noqa: E402
+    MeshSpec, initialize_distributed_from_env, make_mesh, mesh_devices,
+    shutdown_distributed, warmup_collectives)
+
+import _torch_mp_workload as workload  # noqa: E402
+
+
+def main():
+    torch.set_num_threads(1)
+    assert initialize_distributed_from_env("cpu")
+    spec = MeshSpec(int(os.environ["LM_NUM_PROCESSES"]), 1)
+    mesh = make_mesh(spec, mesh_devices("cpu", spec))
+    assert len(mesh.local_devices) == 1 and mesh.device_count == spec.data
+    warmup_collectives(mesh)
+    frames = workload.make_frames()
+    out = {"binary": workload.run_inference(frames, mesh)}
+    # 2 CPU replicas a process: the rows split inside each process, then
+    # across the processes
+    wide = MeshSpec(2 * spec.data, 1)
+    out["binary_2x2"] = workload.run_inference(
+        frames, make_mesh(wide, mesh_devices("cpu", wide)))
+    rows = slice(4 * mesh.rank, 4 * mesh.rank + 4)
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        got = workload.run_batch_norm(dtype, rows, dist.group.WORLD)
+        out.update({f"bn_{name}/{key}": value for key, value in got.items()})
+    for case in workload.TRAIN_CASES:
+        losses, state = workload.run_training(case, mesh)
+        out[f"{case}/losses"] = np.asarray(losses)
+        for key, value in state.items():
+            out[f"{case}/{key}"] = value
+    np.savez(os.environ["LM_OUT_PATH"], **out)
+    print(f"[proc {mesh.rank}] done", flush=True)
+    shutdown_distributed()
+
+
+if __name__ == "__main__":
+    main()

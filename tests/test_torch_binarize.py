@@ -107,5 +107,12 @@ def test_cuda_without_a_card_raises(weights):
     _, _, state_dict = weights
     with pytest.raises(RuntimeError, match="CUDA"):
         Binarizer(_port_model(state_dict))
-    with pytest.raises(NotImplementedError):
-        Binarizer(_port_model(state_dict), device="cpu", mesh=object())
+    # a mesh's model axis (channel sharding) is not ported
+    from lecturemath_tpu_torch.parallel.mesh import Mesh
+
+    cpu = torch.device("cpu")
+    model_axis = Mesh(shape={"data": 1, "model": 2},
+                      devices=((0, cpu), (0, cpu)), local_devices=(cpu, cpu),
+                      rank=0, world_size=1, device_count=2)
+    with pytest.raises(NotImplementedError, match="item 10b"):
+        Binarizer(_port_model(state_dict), device="cpu", mesh=model_axis)

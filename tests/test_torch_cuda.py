@@ -800,3 +800,94 @@ def test_eval_text_detector_cli_on_the_card(cuda, tmp_path, capsys):
     out = capsys.readouterr().out
     assert conv_same_nhwc.launches - before == 4 * 4  # 4 images, 4 heads
     assert out.count("Processing:") == 4 and "Pixel" in out
+
+
+# ------------------------------------------------------------- scale-out
+
+def _one_card_mesh():
+    from lecturemath_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    return make_mesh(MeshSpec(1, 1))
+
+
+def test_one_card_mesh_binarizer_equals_meshless(cuda):
+    """A 1x1 mesh on the card: the stream's frames and binarize_frames are
+    the meshless Binarizer's bit for bit, through K2 and K1."""
+    from lecturemath_tpu_torch.pipeline.binarize import Binarizer
+    from lecturemath_tpu_torch.pipeline.video import ArraySource
+
+    plain = _serving_binarizer(cuda)
+    mesh = Binarizer(plain.model, mesh=_one_card_mesh(), batch_size=4,
+                     upload_format="rgb")
+    assert mesh.device == torch.device("cuda", 0)
+    assert mesh.mesh.local_devices == (torch.device("cuda", 0),)
+    frames = _serving_frames(7)
+    plain.batch_size = 4
+    before = (threshold_pack.launches, conv_same_nhwc.launches)
+    _, _, ours = mesh.process_source(ArraySource(frames))
+    assert threshold_pack.launches - before[0] == 2       # 2 batches
+    assert conv_same_nhwc.launches - before[1] == 8       # 4 heads each
+    _, _, theirs = plain.process_source(ArraySource(frames))
+    for a, b in zip(ours, theirs):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(mesh.binarize_frames(frames[:3]),
+                                  plain.binarize_frames(frames[:3]))
+
+
+def test_sharded_binarizer_on_the_card(cuda):
+    from lecturemath_tpu_torch.models.fcn_lecturenet import (
+        make_packed_binarizer, unpack_bits_host)
+    from lecturemath_tpu_torch.parallel.inference import ShardedBinarizer
+
+    model = _serving_binarizer(cuda).model
+    sharded = ShardedBinarizer(model, _one_card_mesh())
+    frames = _serving_frames(5)
+    before = threshold_pack.launches
+    got = sharded.binarize_frames(frames)
+    assert threshold_pack.launches == before + 1
+    expected = unpack_bits_host(make_packed_binarizer(model)(
+        torch.from_numpy(frames).to(cuda)).cpu().numpy(), 96)
+    np.testing.assert_array_equal(got, expected)
+
+
+def test_one_rank_nccl_training_equals_meshless(cuda, monkeypatch):
+    """3 fp32 steps (TF32 off) with weighted losses and a live BN in a
+    one-rank NCCL world joined under the LM_* contract: the cross-replica
+    BN and the gradient all-reduce give the meshless Trainer's losses and
+    running statistics within rtol 1e-5."""
+    from lecturemath_tpu_torch.parallel.launch import free_port
+    from lecturemath_tpu_torch.parallel.mesh import (
+        MeshSpec, initialize_distributed_from_env, make_mesh,
+        shutdown_distributed, warmup_collectives)
+    from lecturemath_tpu_torch.train.trainer import Trainer
+
+    batch = _training_batch(size=64)
+    batch = {key: np.ascontiguousarray(
+        np.moveaxis(value, 1, -1).astype(np.float32))
+        for key, value in batch.items()}
+    batch["weights"] = np.random.default_rng(1).uniform(
+        0, 2, batch["target"].shape).astype(np.float32)
+
+    def three_steps(mesh):
+        trainer = Trainer(_training_model(), 0.05, phase="binarizer",
+                          use_weights=True, clip_norm=1.0, prefetch_depth=0,
+                          device=None if mesh else cuda, mesh=mesh)
+        losses = [trainer.step(batch)["total"].item() for _ in range(3)]
+        return losses, trainer.model.state_dict()
+
+    plain_losses, plain_state = three_steps(None)
+    monkeypatch.setenv("LM_COORDINATOR", f"127.0.0.1:{free_port()}")
+    monkeypatch.setenv("LM_NUM_PROCESSES", "1")
+    monkeypatch.setenv("LM_PROCESS_ID", "0")
+    try:
+        assert initialize_distributed_from_env()
+        mesh = make_mesh(MeshSpec(1, 1))
+        warmup_collectives(mesh)
+        mesh_losses, mesh_state = three_steps(mesh)
+    finally:
+        shutdown_distributed()
+    np.testing.assert_allclose(mesh_losses, plain_losses, rtol=1e-5)
+    for key, value in plain_state.items():
+        if "running" in key:
+            torch.testing.assert_close(mesh_state[key], value, rtol=1e-5,
+                                       atol=1e-6)

@@ -156,6 +156,22 @@ def test_training_slice_modules_are_checked(module):
     assert module in [_module_name(p) for p in _port_files()]
 
 
+SCALE_OUT_MODULES = [
+    *[f"lecturemath_tpu_torch.parallel.{name}" for name in (
+        "inference", "sync_norm", "launch")],
+    "lecturemath_tpu_torch.parallel",
+    "lecturemath_tpu_torch.cli.run_pipeline",
+]
+
+
+@pytest.mark.parametrize("module", SCALE_OUT_MODULES)
+def test_scale_out_modules_are_checked(module):
+    """Frame-sharded inference, the cross-replica BatchNorm, the training
+    CLIs' local launch and express's mesh request are among the files the
+    checks above walk."""
+    assert module in [_module_name(p) for p in _port_files()]
+
+
 _NO_OPENCV = r"""
 import os, sys
 BANNED = ("cv2", "PIL")

@@ -357,10 +357,44 @@ def test_device_entry_points_raise_without_card(rgb_workspace, staged):
 
 
 def test_binarize_mesh_is_not_ported(rgb_workspace):
-    _, configs, _ = rgb_workspace
-    with pytest.raises(NotImplementedError, match="item 10"):
-        binarize.main(["binarize", configs["staged"], "-mesh", "2x1",
+    """The model axis of a mesh: -mesh DxM with M > 1, and TPU_MESH, which
+    express used to drop without a word."""
+    root, configs, _ = rgb_workspace
+    with pytest.raises(NotImplementedError, match="item 10b"):
+        binarize.main(["binarize", configs["staged"], "-mesh", "2x2",
                        "-device", "cpu"])
+    conf = root / "model_axis.conf"
+    conf.write_text(open(configs["express"]).read() + "\nTPU_MESH = 1x2")
+    with pytest.raises(NotImplementedError, match="item 10b"):
+        run_pipeline.main(["run_pipeline", str(conf), "-device", "cpu"])
+
+
+@pytest.mark.parametrize("request_by", ["flag", "config"])
+def test_mesh_2x1_cpu_equals_meshless(rgb_workspace, capsys, request_by):
+    """Stage 01 and express over a 2x1 mesh of CPU replicas (-mesh 2x1, or
+    TPU_MESH = 2x1): the stage-01 artifact and the summary are the
+    meshless CLIs' byte for byte."""
+    root, configs, _ = rgb_workspace
+    text = open(configs["express"]).read()
+    paths = {}
+    for name in ("single", "mesh"):
+        paths[name] = root / f"{name}_{request_by}.conf"
+        extra = "\nTPU_MESH = 2x1" if name == "mesh" and \
+            request_by == "config" else ""
+        paths[name].write_text(text.replace(
+            "out_express", f"out_{name}_{request_by}") + extra)
+    flag = ["-mesh", "2x1"] if request_by == "flag" else []
+    for name in ("single", "mesh"):
+        argv = [str(paths[name]), "-device", "cpu"]
+        argv += flag if name == "mesh" else []
+        binarize.main(["binarize", *argv])
+        run_pipeline.main(["run_pipeline", *argv])
+        assert "synth01: 2 keyframes" in capsys.readouterr().out
+    artifact = os.path.join("temporal", f"tempo_binary_{LECTURE}.dat")
+    trees = [root / f"out_{name}_{request_by}" for name in ("single", "mesh")]
+    assert (trees[0] / artifact).read_bytes() == \
+        (trees[1] / artifact).read_bytes()
+    assert _summary_tree(trees[0]) == _summary_tree(trees[1])
 
 
 def test_quickstart_device_cpu(tmp_path, capsys):

@@ -12,6 +12,7 @@ import torch
 
 from lecturemath_tpu_torch.cli import (train_binarizer, train_reconstruction,
                                        train_text_detector)
+from lecturemath_tpu_torch.models.convert import load_checkpoint
 
 torch.set_num_threads(1)
 
@@ -156,10 +157,54 @@ def test_missing_warm_start_raises(workspace):
         train_text_detector.main(["prog", str(conf), "-device", "cpu"])
 
 
+def test_missing_warm_start_raises_before_joining_a_world(workspace,
+                                                          monkeypatch):
+    """Under the LM_* contract a process missing its warm start fails before
+    it joins the world, not in a collective its peers wait at."""
+    from lecturemath_tpu_torch.train import trainer
+
+    def joined(*args, **kwargs):
+        raise AssertionError("joined the world before the warm-start check")
+
+    monkeypatch.setattr(trainer, "initialize_distributed_from_env", joined)
+    monkeypatch.setenv("LM_COORDINATOR", "127.0.0.1:1")
+    monkeypatch.setenv("LM_NUM_PROCESSES", "2")
+    monkeypatch.setenv("LM_PROCESS_ID", "1")
+    conf = workspace / "train.conf"
+    conf.write_text(conf.read_text().replace(
+        f"RECONSTRUCTION_OUTPUT = {workspace}/rec.msgpack",
+        f"RECONSTRUCTION_OUTPUT = {workspace}/typo.msgpack"))
+    with pytest.raises(FileNotFoundError, match="warm-start checkpoint"):
+        train_text_detector.main(["prog", str(conf), "-device", "cpu",
+                                  "-mesh", "2"])
+
+
 def test_a_mesh_of_several_devices_raises(workspace):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        train_reconstruction.main(["prog", str(workspace / "train.conf"),
-                                   "-device", "cpu", "-mesh", "2"])
+    """A mesh's model axis is not ported: -mesh DxM with M > 1 raises in
+    every training CLI before any process starts (-mesh D runs: see
+    tests/test_torch_multiprocess.py)."""
+    for cli in (train_reconstruction, train_text_detector, train_binarizer):
+        with pytest.raises(NotImplementedError, match="item 10b"):
+            cli.main(["prog", str(workspace / "train.conf"),
+                      "-device", "cpu", "-mesh", "2x2"])
+
+
+def test_a_one_device_mesh_trains_in_process(workspace):
+    """-mesh 1x1 without LM_COORDINATOR trains in this process, exactly as
+    without a mesh."""
+    conf = workspace / "train.conf"
+    mesh_conf = workspace / "mesh.conf"
+    mesh_conf.write_text(conf.read_text().replace(
+        f"RECONSTRUCTION_OUTPUT = {workspace}/rec.msgpack",
+        f"RECONSTRUCTION_OUTPUT = {workspace}/rec_mesh.msgpack"))
+    train_reconstruction.main(["prog", str(conf), "-device", "cpu"])
+    train_reconstruction.main(["prog", str(mesh_conf), "-device", "cpu",
+                               "-mesh", "1x1"])
+    plain = load_checkpoint(str(workspace / "rec.msgpack"))
+    meshed = load_checkpoint(str(workspace / "rec_mesh.msgpack"))
+    assert sorted(meshed) == sorted(plain)
+    for key, value in plain.items():
+        assert torch.equal(meshed[key], value), key
 
 
 @pytest.mark.parametrize("cli", [train_reconstruction, train_text_detector,
