@@ -100,10 +100,29 @@ then, in phases:
      falling losses, one checkpoint set). With 2 or more cards, inference
      over 2 cards and a 2-process NCCL training; otherwise one line says
      they did not run.
+ 11. express through the recycled device worker (WorkerBinarizer, batches
+     of 16, prespawn with an eager spare, a recycle budget just above the
+     first child's RSS at ready) on the phase-4 lecture: at least 2
+     recycles, stage-01 frames identical to the in-process Binarizer's and
+     the summary identical to phase 4's, K1 and K2 launched in the
+     children (their counts come back with each stream); fps against
+     in-process, each recycle's stall, cold and warm child start to ready,
+     the children's RSS at ready and peak, and the card's free memory
+     after the run against before it. Then the device ops on the card
+     against the port's CPU versions: clahe_batch on 16 gray frames at
+     grids 8x8 and 48x27 (within one gray level, modulo 256, of the CPU and
+     of clahe_host on at most 0.1% of the pixels; ms a batch),
+     motion_stats over frame pairs (counts and boxes exact, centroid and
+     deviation within rtol 1e-5) and ConvolutionalKMeans on [65536, 64]
+     clustered seeded features, k=32, 20 updates (assignments equal,
+     similarity within 1e-5; ms an update); then
+     CCTracker.add_frame(input_binary=False) over 16 RGB frames in a child
+     with cv2 and PIL blocked, equal to the same run with them allowed.
 
-The launch counts are set to 0 just before each of the six paths (phases
-4, 6, 7, 8, 9 and 10; in phase 10 around each mesh run, and the child
-processes count their own) and read just after. Serving launches are graph replays times
+The launch counts are set to 0 just before each of the seven paths
+(phases 4, 6, 7, 8, 9, 10 and 11; in phase 10 around each mesh run, and
+the child processes count their own; in phase 11 the worker's children
+count theirs and report them with each stream) and read just after. Serving launches are graph replays times
 the launches each graph holds, counted by the service: the wrappers count
 once when a graph is captured. It prints one JSON line of kernel numbers,
 then as its last line ``{"ok": true, "device": {...}}``, and exits 0 only
@@ -552,7 +571,8 @@ def phase_main_path(conf, counters):
                      "express")
     return launches, {"fps": N_FRAMES / wall, "wall_s": wall,
                       "batch": binarizer.batch_size, "flip_rate": flip_rate,
-                      "indices": list(indices)}
+                      "indices": list(indices), "times": list(times),
+                      "keyframes": keyframes}
 
 
 def random_head_check(model, frames):
@@ -2707,17 +2727,18 @@ SCALE_CLI_EPOCHS = 4
 CHILD_TIMEOUT_S = 300
 
 
-def start_child(call, world=1, rank=0, port=None, visible=None):
+def start_child(call, world=1, rank=0, port=None, visible=None, block=()):
     """``chip_smoke.<call>`` in a child process, as process ``rank`` of a
     world joined under the LM_* contract (``child_results`` waits for
-    it)."""
+    it), with the modules ``block`` names unimportable."""
     from lecturemath_tpu_torch.parallel.launch import free_port
 
     env = dict(os.environ, LM_COORDINATOR=f"127.0.0.1:{port or free_port()}",
                LM_NUM_PROCESSES=str(world), LM_PROCESS_ID=str(rank))
     if visible is not None:
         env["CUDA_VISIBLE_DEVICES"] = visible
-    code = (f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
+    code = (f"import sys; sys.modules.update(dict.fromkeys({block!r})); "
+            f"sys.path.insert(0, {REPO!r}); import chip_smoke; "
             f"sys.exit(chip_smoke.{call})")
     return subprocess.Popen([sys.executable, "-c", code], env=env, cwd=REPO,
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -3207,6 +3228,313 @@ def two_card_checks(config, card):
     return {"fps": rates, "flip_rate": flips, "training": results}
 
 
+# --------------------------------------------------------------- phase 11
+
+# express through the recycled device worker: batches of 16 (the phase-4
+# lecture is 15 of them, so every child reports batches before the stream
+# ends) and a recycle budget this far above the first child's RSS at ready
+WORKER_BATCH = 16
+WORKER_MARGIN_MB = 32
+# seconds to wait for a closed child's card memory to come back, and what
+# may stay held
+MEMORY_SETTLE_S = 30
+MEMORY_SLACK = 64 << 20
+# the device ops: CLAHE on 16 gray frames at two grids (the JAX package's
+# default and the classical binarizer's 960 // 20 x 540 // 20), within one
+# gray level (modulo 256) on at most this share of the pixels; motion
+# statistics over frame pairs; k-means on clustered seeded features
+CLAHE_FRAMES = 16
+CLAHE_GRIDS = ((8, 8), (48, 27))
+MAX_CLAHE_OFF = 1e-3
+STAT_RTOL = 1e-5
+KMEANS_ROWS, KMEANS_DIM, KMEANS_K, KMEANS_UPDATES = 65536, 64, 32, 20
+# the classical tracker path: 16 RGB frames of the lecture
+CLASSICAL_FRAMES = 16
+
+
+class CapturedStream:
+    """A binarizer's streaming surface that keeps every stage-01 frame the
+    express run consumed."""
+
+    def __init__(self, binarizer):
+        self.binarizer = binarizer
+        self.frames = []
+
+    def stream_source(self, source, frames_limit=0, invert=True):
+        for times, indices, frames in self.binarizer.stream_source(
+                source, frames_limit, invert):
+            self.frames.extend(frames)
+            yield times, indices, frames
+
+
+def free_card_bytes():
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.mem_get_info()[0]
+
+
+def worker_express(conf, summary, card):
+    """Express through WorkerBinarizer against the in-process path."""
+    import numpy as np
+    import torch
+
+    from lecturemath_tpu_torch.pipeline.binarize import Binarizer
+    from lecturemath_tpu_torch.pipeline.device_worker import WorkerBinarizer
+    from lecturemath_tpu_torch.pipeline.driver import PipelineDriver
+    from lecturemath_tpu_torch.pipeline.express import run_lecture
+    from lecturemath_tpu_torch.pipeline.video import ArraySource
+
+    driver = PipelineDriver.from_config_path(conf, [], None, None)
+    lecture = driver.database.lectures[0]
+    plain = Binarizer.from_config(driver.config)
+    plain._packed_fn(torch.from_numpy(np.stack(
+        [make_source().rgb_frame(t) for t in range(8)])).cuda())
+    plain_fps, plain_frames = stream_fps(plain)
+    del plain
+    free_before = free_card_bytes()
+
+    worker = WorkerBinarizer.from_config(
+        driver.config, binarizer_kwargs={"batch_size": WORKER_BATCH},
+        compile_cache=os.path.join(WORKSPACE, "cuda_cache"))
+    if not (worker.prespawn and worker.prespawn_eager):
+        raise AssertionError("the worker runs without an eager spare")
+    try:
+        # the cold child, warmed by one frame (the stream before the
+        # lecture, not counted); the budget sits just above its RSS at ready
+        worker.process_source(ArraySource(
+            np.stack([make_source().rgb_frame(0)])))
+        cold = dict(worker.children[0])
+        worker.recycle_mb = cold["ready_rss_mb"] + WORKER_MARGIN_MB
+        worker.launches = {}
+        captured = CapturedStream(worker)
+        t0 = time.perf_counter()
+        indices, times, keyframes = run_lecture(
+            driver, lecture, captured, source=make_source(), export=False)
+        wall = time.perf_counter() - t0
+        launches = dict(worker.launches)
+    finally:
+        worker.close()
+    deadline = time.monotonic() + MEMORY_SETTLE_S
+    free_after = free_card_bytes()
+    while free_before - free_after > MEMORY_SLACK and \
+            time.monotonic() < deadline:
+        time.sleep(0.5)
+        free_after = free_card_bytes()
+
+    ready = [c for c in worker.children if c["start_to_ready_s"] is not None]
+    warm = [c["start_to_ready_s"] for c in ready[1:]]
+    log(f"express through the device worker: {N_FRAMES} frames in "
+        f"{wall:.3f} s = {N_FRAMES / wall:.2f} fps (in-process express "
+        f"{summary['fps']:.2f} fps, phase 4; in-process stage-01 stream "
+        f"{plain_fps:.2f} fps); batch {WORKER_BATCH}, budget "
+        f"{worker.recycle_mb:.1f} MB; recycles {worker.recycles}, stalls ms "
+        f"{[round(1000 * s, 3) for s in worker.recycle_stalls_s]}; child "
+        f"start to ready s: cold {cold['start_to_ready_s']:.3f}, warm "
+        f"{[round(s, 3) for s in warm]}; child RSS MB at ready / peak "
+        f"{[(round(c['ready_rss_mb'], 1), round(c['peak_rss_mb'], 1)) for c in ready]}"
+        f"; card free GiB before {free_before / 2**30:.3f}, after "
+        f"{free_after / 2**30:.3f}; launches in the children {launches}; "
+        f"on {card}")
+    if worker.recycles < 2:
+        raise AssertionError(f"{worker.recycles} recycles, expected >= 2")
+    if len(captured.frames) != N_FRAMES or any(
+            not np.array_equal(a, b)
+            for a, b in zip(captured.frames, plain_frames)):
+        raise AssertionError("the worker's stage-01 frames differ from the "
+                             "in-process Binarizer's")
+    if list(indices) != summary["indices"] or \
+            list(times) != summary["times"] or \
+            len(keyframes) != len(summary["keyframes"]) or any(
+                not np.array_equal(a, b)
+                for a, b in zip(keyframes, summary["keyframes"])):
+        raise AssertionError("the worker's express summary differs from "
+                             "phase 4's")
+    for name in EXPRESS_KERNELS:
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"kernel {name} not launched in a child")
+    if free_before - free_after > MEMORY_SLACK:
+        raise AssertionError(f"the closed children left "
+                             f"{(free_before - free_after) / 2**20:.0f} MiB "
+                             f"of card memory held")
+    return launches, {"fps": N_FRAMES / wall, "plain_stream_fps": plain_fps,
+                      "recycles": worker.recycles,
+                      "stalls_ms": [1000 * s
+                                    for s in worker.recycle_stalls_s],
+                      "children": worker.children,
+                      "free_gib": [free_before / 2**30, free_after / 2**30]}
+
+
+def mod256(a, b):
+    import numpy as np
+
+    d = np.abs(a.astype(np.int64) - b.astype(np.int64))
+    return np.minimum(d, 256 - d)
+
+
+def device_ops(card):
+    """CLAHE, motion statistics and k-means on the card against the port's
+    CPU versions (and CLAHE against the float64 host CLAHE)."""
+    import numpy as np
+    import torch
+
+    from lecturemath_tpu_torch.ops import (clahe_batch, clahe_host,
+                                           motion_stats)
+    from lecturemath_tpu_torch.ops.ckmeans import ConvolutionalKMeans
+    from lecturemath_tpu_torch.utils.image import rgb_to_gray
+
+    source = make_source()
+    picks = np.linspace(0, N_FRAMES - 1, CLAHE_FRAMES).astype(int)
+    gray = np.stack([rgb_to_gray(source.rgb_frame(t)) for t in picks])
+    numbers = {"clahe": {}}
+    for grid in CLAHE_GRIDS:
+        card_gray = torch.from_numpy(gray).cuda()
+        ours = clahe_batch(card_gray, 0.04, *grid).cpu().numpy()
+        ms = cuda_ms(lambda: clahe_batch(card_gray, 0.04, *grid), 5)
+        cpu = clahe_batch(gray, 0.04, *grid, device="cpu").numpy()
+        host = np.stack([clahe_host(g, 0.04, *grid) for g in gray])
+        shares = {}
+        for name, other in (("cpu", cpu), ("host", host)):
+            d = mod256(ours, other)
+            shares[name] = float((d > 0).mean())
+            if d.max() > 1 or shares[name] > MAX_CLAHE_OFF:
+                raise AssertionError(
+                    f"clahe_batch grid {grid} on the card vs {name}: max "
+                    f"{d.max()} levels, {shares[name]} of pixels off")
+        numbers["clahe"][f"{grid[0]}x{grid[1]}"] = {"ms": ms, **shares}
+        log(f"clahe_batch [{CLAHE_FRAMES},{HEIGHT},{WIDTH}] grid "
+            f"{grid[0]}x{grid[1]}: {ms:.3f} ms a batch (CUDA events); pixels"
+            f" one level off: {shares['cpu']:.2e} of the CPU's, "
+            f"{shares['host']:.2e} of clahe_host's (bound {MAX_CLAHE_OFF})"
+            f"; on {card}")
+
+    pairs = [(t, t + step) for step in (1, 8, 60) for t in (0, 100, 119)]
+    changed = 0
+    for jump in (1, 3):
+        for a, b in pairs:
+            frame, last = source.rgb_frame(b), source.rgb_frame(a)
+            ours = motion_stats(torch.from_numpy(frame).cuda(),
+                                torch.from_numpy(last).cuda(), 15, jump)
+            theirs = motion_stats(frame, last, 15, jump, device="cpu")
+            if int(ours.total_changes) != int(theirs.total_changes) or \
+                    not np.array_equal(ours.bbox.cpu().numpy(),
+                                       theirs.bbox.numpy()):
+                raise AssertionError(f"motion_stats {a}->{b} jump {jump}: "
+                                     f"count or bbox differ")
+            for got, want in ((ours.centroid, theirs.centroid),
+                              (ours.deviation, theirs.deviation)):
+                np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                           rtol=STAT_RTOL)
+            changed += int(theirs.total_changes)
+    if changed == 0:
+        raise AssertionError("motion_stats saw no change in any pair")
+    log(f"motion_stats on {2 * len(pairs)} frame pairs (jump 1 and 3): "
+        f"counts and bboxes exact, centroid and deviation within rtol "
+        f"{STAT_RTOL}; {changed} changed pixels in all")
+
+    rng = np.random.default_rng(0)
+    means = rng.normal(0, 1, (KMEANS_K, KMEANS_DIM))
+    means /= np.linalg.norm(means, axis=1, keepdims=True)
+    data = (means[rng.integers(0, KMEANS_K, KMEANS_ROWS)]
+            + rng.normal(0, 0.05, (KMEANS_ROWS, KMEANS_DIM))
+            ).astype(np.float32)
+    ours = ConvolutionalKMeans(data, KMEANS_K, init_vectors=means)
+    theirs = ConvolutionalKMeans(data, KMEANS_K, init_vectors=means,
+                                 device="cpu")
+    ours.update()  # cuBLAS's first call, not timed
+    theirs.update()
+    gaps = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    elapsed = 0.0
+    for _ in range(KMEANS_UPDATES - 1):
+        start.record()
+        similarity = ours.update()
+        end.record()
+        end.synchronize()
+        elapsed += start.elapsed_time(end)
+        gaps.append(abs(similarity - theirs.update()))
+    if max(gaps) > STAT_RTOL:
+        raise AssertionError(f"k-means similarity off by {max(gaps)}")
+    if not np.array_equal(ours.assign(data), theirs.assign(data)):
+        raise AssertionError("k-means assignments differ")
+    np.testing.assert_allclose(ours.centers.cpu().numpy(),
+                               theirs.centers.numpy(), rtol=STAT_RTOL,
+                               atol=1e-6)
+    update_ms = elapsed / (KMEANS_UPDATES - 1)
+    log(f"ConvolutionalKMeans [{KMEANS_ROWS},{KMEANS_DIM}] k={KMEANS_K}: "
+        f"{KMEANS_UPDATES} updates, assignments equal, similarity within "
+        f"{max(gaps):.2e}; {update_ms:.3f} ms an update (CUDA events around "
+        f"update(), its host sync included); on {card}")
+    numbers["kmeans_update_ms"] = update_ms
+    return numbers
+
+
+def classical_run():
+    """The tracker's classical path over CLASSICAL_FRAMES RGB frames of the
+    lecture: (unique CCs, a digest of their boxes and sizes, ms a frame,
+    whether cv2 was importable)."""
+    import hashlib
+    import importlib.util
+
+    import numpy as np
+
+    from lecturemath_tpu_torch.ops.classical import \
+        background_subtraction_binarize
+    from lecturemath_tpu_torch.pipeline.cc_tracking import CCTracker
+
+    source = make_source()
+    tracker = CCTracker(width=WIDTH, height=HEIGHT, min_recall=0.925,
+                        min_precision=0.925, max_gap=85)
+    picks = np.linspace(0, N_FRAMES - 1, CLASSICAL_FRAMES).astype(int)
+    # untimed: the native median's first call builds its library
+    background_subtraction_binarize(source.rgb_frame(0))
+    t0 = time.perf_counter()
+    for t in picks:
+        tracker.add_frame(source.rgb_frame(int(t)), input_binary=False)
+    wall = time.perf_counter() - t0
+    boxes = [[cc.min_x, cc.max_x, cc.min_y, cc.max_y, cc.size]
+             for cc in tracker.unique_ccs]
+    return {"unique": len(boxes),
+            "digest": hashlib.sha256(json.dumps(boxes).encode()).hexdigest(),
+            "ms_per_frame": 1000 * wall / len(picks),
+            # None for a module blocked through sys.modules
+            "cv2_importable": importlib.util.find_spec("cv2") is not None}
+
+
+def classical_child():
+    """Child (cv2 and PIL blocked): classical_run's result as JSON."""
+    print(json.dumps(classical_run()), flush=True)
+    return 0
+
+
+def phase_device_worker(conf, summary, card):
+    """Express through the recycled device worker, the device ops on the
+    card, and the classical tracker path; returns (the children's launch
+    counts, numbers)."""
+    launches, numbers = worker_express(conf, summary, card)
+    numbers["ops"] = device_ops(card)
+    blocked, = child_results([start_child("classical_child()",
+                                          block=("cv2", "PIL"))],
+                             "classical tracker")
+    allowed = classical_run()
+    log(f"classical tracker path, {CLASSICAL_FRAMES} RGB frames at "
+        f"{WIDTH}x{HEIGHT}: {blocked['unique']} unique CCs with cv2 and PIL "
+        f"blocked ({blocked['ms_per_frame']:.1f} ms a frame), "
+        f"{allowed['unique']} with cv2 "
+        f"{'importable' if allowed['cv2_importable'] else 'absent'} "
+        f"({allowed['ms_per_frame']:.1f} ms a frame)")
+    if blocked["cv2_importable"]:
+        raise AssertionError("cv2 was importable in the blocked child")
+    if blocked["unique"] <= 0 or (blocked["unique"], blocked["digest"]) != \
+            (allowed["unique"], allowed["digest"]):
+        raise AssertionError(f"classical tracker: blocked {blocked} vs "
+                             f"allowed {allowed}")
+    numbers["classical"] = {"blocked": blocked, "allowed": allowed}
+    return launches, numbers
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "lecturemath_tpu_torch")):
         print("chip_smoke.py: lecturemath_tpu_torch not found beside this "
@@ -3281,6 +3609,8 @@ def main():
     evaluation = {}
     scale_launches = {}
     scale = {}
+    worker_launches = {}
+    worker = {}
     try:
         conf, _ = make_workspace()
         try:
@@ -3324,6 +3654,13 @@ def main():
         except Exception:  # noqa: BLE001 — report every phase, then fail
             traceback.print_exc()
             failures.append("scale-out path")
+        torch.cuda.empty_cache()
+        try:
+            worker_launches, worker = phase_device_worker(conf, summary,
+                                                          card)
+        except Exception:  # noqa: BLE001 — report every phase, then fail
+            traceback.print_exc()
+            failures.append("device-worker path and device ops")
     except Exception:  # noqa: BLE001 — report every phase, then fail
         traceback.print_exc()
         failures.append("workspace")
@@ -3344,7 +3681,8 @@ def main():
                 "serving": serving_launches.get(name, 0),
                 "training": training_launches.get(name, 0),
                 "evaluation": evaluation_launches.get(name, 0),
-                "scale_out": scale_launches.get(name, 0)}
+                "scale_out": scale_launches.get(name, 0),
+                "device_worker": worker_launches.get(name, 0)}
     for key in SERVING_KERNELS:
         if key in records and serving:
             device_us = {bucket: numbers["device_us"]
@@ -3370,6 +3708,8 @@ def main():
              "flip_rate": evaluation["flip_rate"]}))
     if scale:
         log(f"scale-out on {card}: " + json.dumps(scale))
+    if worker:
+        log(f"device worker and device ops on {card}: " + json.dumps(worker))
     log(f"express {summary.get('fps', 0):.2f} fps on {card}")
     log(card)
     log(json.dumps({"kernels": list(records.values())}))

@@ -8,14 +8,16 @@ Usage: python -m lecturemath_tpu_torch.cli.run_pipeline <config>
 ``-mesh D`` / TPU_MESH shard stage 01's frames over D devices, and the
 LM_* env contract joins the processes of several hosts, as for the stage-01
 CLI (cli/binarize.py); ``-mesh DxM`` with M > 1 raises (ROADMAP queue 1,
-item 10b).
+item 10b). Without a mesh, DEVICE_WORKER_RECYCLE_MB > 0 runs stage 01 in a
+recycled device worker process (pipeline/device_worker.py), one shared by
+every lecture of the run.
 """
 
 import sys
 
 from ..pipeline.binarize import Binarizer
 from ..pipeline.driver import PipelineDriver, usage_check
-from ..pipeline.express import check_no_device_worker, driver_device, run_lecture
+from ..pipeline.express import driver_device, run_lecture
 from .binarize import resolve_mesh
 
 
@@ -30,14 +32,21 @@ def main(argv=None):
     device = driver_device(driver)
     # finally: a process that fails mid-run still joins the shutdown
     # barrier its peers wait at
+    binarizer = None
     try:
         mesh = resolve_mesh(driver.params, driver.config, device)
-        if mesh is None:
-            # the JAX CLI takes the recycled device worker only without a
-            # mesh; the port has no worker yet
-            check_no_device_worker(driver.config)
-        binarizer = Binarizer.from_config(driver.config, device=device,
-                                          mesh=mesh)
+        recycle_mb = driver.config.get_float("DEVICE_WORKER_RECYCLE_MB", 0.0)
+        if recycle_mb > 0 and mesh is None:
+            # recycled child device process (pipeline/device_worker.py),
+            # shared across lectures so a healthy child stays warm between
+            # them
+            from ..pipeline.device_worker import WorkerBinarizer
+
+            binarizer = WorkerBinarizer.from_config(driver.config,
+                                                    device=device)
+        else:
+            binarizer = Binarizer.from_config(driver.config, device=device,
+                                              mesh=mesh)
         save_artifacts = str(driver.params.get("save", "0")) == "1"
 
         for lecture in driver.iter_lectures():
@@ -48,6 +57,8 @@ def main(argv=None):
             print(f"{lecture.title}: {len(keyframes)} keyframes in "
                   f"{driver.timer.totals[lecture.title]:.2f}s")
     finally:
+        if binarizer is not None and hasattr(binarizer, "close"):
+            binarizer.close()
         shutdown_distributed()
     print("Finished")
 

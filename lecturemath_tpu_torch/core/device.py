@@ -6,6 +6,7 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 
@@ -23,6 +24,17 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
                            "is_available() is False; pass device='cpu' "
                            "(CLI: -device cpu) to run on the CPU")
     return dev
+
+
+def as_tensor(data: Union[np.ndarray, torch.Tensor],
+              device: Optional[Union[str, torch.device]] = None
+              ) -> torch.Tensor:
+    """A tensor stays where it is; an array goes to ``device`` (None: the
+    card, as ``resolve_device``)."""
+    if isinstance(data, torch.Tensor):
+        return data
+    return torch.from_numpy(np.ascontiguousarray(data)).to(
+        resolve_device(device))
 
 
 def cli_args(args: Sequence[str]) -> Tuple[List[str], Optional[str]]:

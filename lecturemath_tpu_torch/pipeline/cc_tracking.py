@@ -65,14 +65,14 @@ class CCTracker:
     # ------------------------------------------------------------- tracking
 
     def add_frame(self, frame: np.ndarray, input_binary: bool = True) -> None:
-        """Extract CCs from a binary frame and track them. ``input_binary``
-        False (classical background subtraction first, reference:
-        cc_stability_estimator.py:40-47) raises until ops/classical.py is
-        ported."""
+        """Extract CCs from a frame and track them. With ``input_binary``
+        False the frame is classically binarized first via background
+        subtraction (reference: add_frame's non-binary default path,
+        cc_stability_estimator.py:40-47)."""
         if not input_binary:
-            raise NotImplementedError(
-                "classical background-subtraction binarization is not "
-                "ported yet (ROADMAP queue 1, item 12: ops/classical.py)")
+            from ..ops.classical import background_subtraction_binarize
+
+            frame = background_subtraction_binarize(frame.astype(np.uint8))
         self.add_frame_ccs(extract_ccs(frame))
 
     def add_frame_ccs(self, current: List[CC]) -> None:

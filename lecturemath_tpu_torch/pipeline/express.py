@@ -30,15 +30,6 @@ def driver_device(driver: PipelineDriver) -> Optional[str]:
     return device
 
 
-def check_no_device_worker(config) -> None:
-    """DEVICE_WORKER_RECYCLE_MB > 0 asks for the recycled child device
-    process, which is not ported yet."""
-    if config.get_float("DEVICE_WORKER_RECYCLE_MB", 0.0) > 0:
-        raise NotImplementedError(
-            "DEVICE_WORKER_RECYCLE_MB > 0 (recycled device worker process) "
-            "is not ported yet (ROADMAP queue 1, item 14)")
-
-
 def run_lecture(driver: PipelineDriver, lecture: LectureInfo,
                 binarizer: Optional[Binarizer] = None,
                 source=None, save_artifacts: bool = False,
@@ -46,7 +37,9 @@ def run_lecture(driver: PipelineDriver, lecture: LectureInfo,
     """Run binarize -> CC -> grouping -> segmentation -> summary for one
     lecture in memory. Returns (summary_indices, summary_times, keyframes).
     Without ``binarizer``, one is built from the config on the device the
-    driver's ``-device`` names (the card by default).
+    driver's ``-device`` names (the card by default): with
+    DEVICE_WORKER_RECYCLE_MB > 0 a recycled device worker
+    (pipeline/device_worker.py), else an in-process Binarizer.
     """
     import os
 
@@ -58,9 +51,16 @@ def run_lecture(driver: PipelineDriver, lecture: LectureInfo,
     # max(device binarize, host track) instead of their sum
     own_binarizer = binarizer is None
     if binarizer is None:
-        check_no_device_worker(config)
-        binarizer = Binarizer.from_config(config,
-                                          device=driver_device(driver))
+        # DEVICE_WORKER_RECYCLE_MB > 0: run the device path in a recycled
+        # child process (pipeline/device_worker.py)
+        if config.get_float("DEVICE_WORKER_RECYCLE_MB", 0.0) > 0:
+            from .device_worker import WorkerBinarizer
+
+            binarizer = WorkerBinarizer.from_config(
+                config, device=driver_device(driver))
+        else:
+            binarizer = Binarizer.from_config(config,
+                                              device=driver_device(driver))
     if source is None:
         source = driver.frame_source(lecture)
 

@@ -35,7 +35,8 @@ from .. import native
 
 __all__ = ["resize_nearest", "resize_area", "resize_linear", "halve_lanczos",
            "rgb_to_yuv420", "rgb_to_gray", "rgb_to_hsv", "hsv_to_rgb",
-           "ellipse_kernel", "erode", "median_blur", "fill_poly"]
+           "ellipse_kernel", "erode", "dilate", "morph_close", "morph_open",
+           "median_blur", "fill_poly"]
 
 
 def _check(img: np.ndarray, size: Tuple[int, int]) -> Tuple[int, int]:
@@ -476,13 +477,15 @@ def ellipse_kernel(size: int) -> np.ndarray:
     return kernel
 
 
-def _window_min(img: np.ndarray, left: int, right: int) -> np.ndarray:
-    """out[:, x] = the minimum of img[:, x + left .. x + right] over the
-    columns inside the image, by doubling windows."""
+def _window_reduce(img: np.ndarray, left: int, right: int, reduce,
+                   outside: int) -> np.ndarray:
+    """out[:, x] = ``reduce`` (np.minimum or np.maximum) of img[:, x + left
+    .. x + right] over the columns inside the image, by doubling windows;
+    ``outside`` fills the columns past the edges and never wins."""
     height, width = img.shape[:2]
     span = right - left + 1
-    # column j of ``padded`` holds image column j + left, 255 outside
-    padded = np.full((height, width + span - 1) + img.shape[2:], 255,
+    # column j of ``padded`` holds image column j + left
+    padded = np.full((height, width + span - 1) + img.shape[2:], outside,
                      np.uint8)
     lo, hi = max(0, left), min(width, width + right)
     if hi > lo:
@@ -491,17 +494,17 @@ def _window_min(img: np.ndarray, left: int, right: int) -> np.ndarray:
     covered = 1
     while covered < span:
         step = min(covered, span - covered)
-        padded[:, :n - step] = np.minimum(padded[:, :n - step],
-                                          padded[:, step:])
+        padded[:, :n - step] = reduce(padded[:, :n - step], padded[:, step:])
         covered += step
     return padded[:, :width]
 
 
-def erode(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
-    """``cv2.erode(img, kernel)`` for uint8 [H, W] or [H, W, C], the anchor
-    at the kernel's centre and OpenCV's default border (pixels outside the
-    image never win the minimum). Each kernel row must be one run of ones,
-    as ``ellipse_kernel``'s are."""
+def _morphology(img: np.ndarray, kernel: np.ndarray, reduce, outside: int,
+                name: str) -> np.ndarray:
+    """``reduce`` over the kernel's support of each pixel: out(y, x) =
+    reduce of img(y + i - kh // 2, x + j - kw // 2) over the kernel's ones
+    (i, j), OpenCV's convention for erode and dilate alike (the kernel is not
+    mirrored, so an even kernel's anchor sits past its centre)."""
     img = np.asarray(img)
     if img.dtype != np.uint8 or img.ndim not in (2, 3):
         raise ValueError(f"expected a uint8 [H, W] or [H, W, C] image, got "
@@ -510,23 +513,47 @@ def erode(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
     kh, kw = kernel.shape
     ay, ax = kh // 2, kw // 2
     height = img.shape[0]
-    out = np.full(img.shape, 255, np.uint8)
+    out = np.full(img.shape, outside, np.uint8)
     rows_by_run = {}
     for i in range(kh):
         cols = np.flatnonzero(kernel[i])
         if not len(cols):
             continue
         if cols[-1] - cols[0] + 1 != len(cols):
-            raise ValueError("erode takes kernels whose rows are runs")
+            raise ValueError(f"{name} takes kernels whose rows are runs")
         run = (int(cols[0]) - ax, int(cols[-1]) - ax)
         if run not in rows_by_run:
-            rows_by_run[run] = _window_min(img, *run)
+            rows_by_run[run] = _window_reduce(img, *run, reduce, outside)
         shifted = rows_by_run[run]
         dy = i - ay
         lo, hi = max(0, -dy), min(height, height - dy)
         if hi > lo:
-            np.minimum(out[lo:hi], shifted[lo + dy:hi + dy], out=out[lo:hi])
+            reduce(out[lo:hi], shifted[lo + dy:hi + dy], out=out[lo:hi])
     return out
+
+
+def erode(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
+    """``cv2.erode(img, kernel)`` for uint8 [H, W] or [H, W, C], the anchor
+    at ``(kh // 2, kw // 2)`` and OpenCV's default border (pixels outside the
+    image never win the minimum). Each kernel row must be one run of ones,
+    as ``ellipse_kernel``'s are."""
+    return _morphology(img, kernel, np.minimum, 255, "erode")
+
+
+def dilate(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
+    """``cv2.dilate(img, kernel)``: as ``erode`` with the maximum (pixels
+    outside the image never win it)."""
+    return _morphology(img, kernel, np.maximum, 0, "dilate")
+
+
+def morph_close(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
+    """``cv2.morphologyEx(img, cv2.MORPH_CLOSE, kernel)``."""
+    return erode(dilate(img, kernel), kernel)
+
+
+def morph_open(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
+    """``cv2.morphologyEx(img, cv2.MORPH_OPEN, kernel)``."""
+    return dilate(erode(img, kernel), kernel)
 
 
 def median_blur(img: np.ndarray, ksize: int) -> np.ndarray:

@@ -8,6 +8,8 @@ machine that has only PyTorch with CUDA:
 (``--noconftest``: tests/conftest.py configures JAX). Without a card every
 test here skips."""
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -891,3 +893,166 @@ def test_one_rank_nccl_training_equals_meshless(cuda, monkeypatch):
         if "running" in key:
             torch.testing.assert_close(mesh_state[key], value, rtol=1e-5,
                                        atol=1e-6)
+
+
+# ------------------------------------------- device worker and device ops
+
+_WORKER_WIDTHS = {"DOWN_CONV_FILTERS": (8, 8, 16, 16, 32),
+                  "UPSAMPLE_FILTERS": (8, 8, 16, 16, 32),
+                  "UP_CONV_FILTERS": (8, 8, 16, 16, 32)}
+
+
+def _worker_config(tmp_path):
+    """The serving test's widths and threshold heads, as a config whose
+    checkpoint (.dat) the worker's child loads."""
+    from lecturemath_tpu_torch.core.config import Config
+    from lecturemath_tpu_torch.models.convert import save_checkpoint
+    from lecturemath_tpu_torch.models.fcn_lecturenet import FCNConfig
+    from lecturemath_tpu_torch.utils.synthetic import \
+        threshold_binarizer_variables
+
+    values = {f"FCN_BINARIZER_NET_{key}_{i}": v
+              for key, widths in _WORKER_WIDTHS.items()
+              for i, v in enumerate(widths, 1)}
+    values.update({"FCN_BINARIZER_NET_MIDDLE_CONV_FILTERS_MIDDLE": 32,
+                   "FCN_BINARIZER_NET_PIXEL_FEATURES_1": 32,
+                   "FCN_BINARIZER_NET_PIXEL_FEATURES_2": 16,
+                   "FCN_BINARIZER_NET_KERNEL_SIZE": 3,
+                   "FCN_BINARIZER_NET_PIXEL_KERNEL_SIZE": 7,
+                   "BINARIZATION_FCN_LECTURENET_DIR": str(tmp_path),
+                   "BINARIZATION_FCN_LECTURENET_FILENAME": "worker.dat",
+                   "UPLOAD_FORMAT": "rgb",
+                   "DEVICE_WORKER_COMPILE_CACHE": str(tmp_path / "cache")})
+    config = Config(values)
+    save_checkpoint(threshold_binarizer_variables(
+        FCNConfig.from_config(config)), str(tmp_path / "worker.dat"))
+    return config
+
+
+def _free_bytes(cuda):
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.mem_get_info(cuda)[0]
+
+
+def test_worker_on_the_card_equals_inprocess(cuda, tmp_path):
+    """The child builds the Binarizer on the card and runs K2 and K1 there
+    (the parent's counters see none of it; the done messages carry the
+    child's); its frames are the in-process Binarizer's bit for bit."""
+    from lecturemath_tpu_torch.pipeline.binarize import Binarizer
+    from lecturemath_tpu_torch.pipeline.device_worker import WorkerBinarizer
+    from lecturemath_tpu_torch.pipeline.video import ArraySource
+
+    config = _worker_config(tmp_path)
+    frames = _serving_frames(10)
+    plain = Binarizer.from_config(config, batch_size=4)
+    _, _, theirs = plain.process_source(ArraySource(frames))
+    before = (threshold_pack.launches, conv_same_nhwc.launches)
+    worker = WorkerBinarizer.from_config(config, recycle_mb=1.0,
+                                         chunk_frames=4,
+                                         binarizer_kwargs={"batch_size": 4})
+    try:
+        _, _, ours = worker.process_source(ArraySource(frames))
+    finally:
+        worker.close()
+    assert (threshold_pack.launches, conv_same_nhwc.launches) == before
+    assert worker.recycles >= 1
+    assert worker.launches["threshold_pack"] >= 3
+    assert worker.launches["conv_same_nhwc"] == \
+        4 * worker.launches["threshold_pack"]
+    assert len(ours) == len(theirs) == 10
+    for a, b in zip(ours, theirs):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_recycled_children_free_their_card_memory(cuda, tmp_path):
+    """At most the active child and its spare hold card memory: the
+    recycled ones give theirs back, and after close() all of it is free."""
+    from lecturemath_tpu_torch.pipeline.device_worker import WorkerBinarizer
+    from lecturemath_tpu_torch.pipeline.video import ArraySource
+
+    config = _worker_config(tmp_path)
+    frames = _serving_frames(8)
+    free_before = _free_bytes(cuda)
+    worker = WorkerBinarizer.from_config(config, chunk_frames=4,
+                                         binarizer_kwargs={"batch_size": 4})
+    try:
+        worker.process_source(ArraySource(frames[:1]))   # one child, warm
+        one_child = free_before - _free_bytes(cuda)
+        assert one_child > 0
+        # a 1 MB budget: every stream ends with a recycle of its child
+        worker.recycle_mb = 1.0
+        for _ in range(3):
+            _, _, out = worker.process_source(ArraySource(frames))
+            assert len(out) == 8
+        assert worker.recycles >= 3
+        held = free_before - _free_bytes(cuda)
+        assert held <= 2.5 * one_child, (held, one_child)
+    finally:
+        worker.close()
+    deadline = time.monotonic() + 30
+    while (free_before - _free_bytes(cuda) > 64 << 20
+           and time.monotonic() < deadline):
+        time.sleep(0.5)
+    assert free_before - _free_bytes(cuda) <= 64 << 20
+
+
+def _mod256(a, b):
+    d = np.abs(a.astype(np.int64) - b.astype(np.int64))
+    return np.minimum(d, 256 - d)
+
+
+@pytest.mark.parametrize("grid", [(8, 8), (48, 27)])
+def test_clahe_batch_on_the_card_equals_cpu(cuda, grid):
+    from lecturemath_tpu_torch.ops.clahe import clahe_batch
+
+    rng = np.random.default_rng(0)
+    gray = np.clip(rng.normal(200, 8, (4, 270, 480)), 0, 255)
+    gray[rng.random(gray.shape) < 0.05] = 40
+    gray = gray.astype(np.uint8)
+    ours = clahe_batch(torch.from_numpy(gray).to(cuda), 0.04, *grid)
+    assert ours.device.type == "cuda" and ours.dtype == torch.uint8
+    ours = ours.cpu().numpy()
+    cpu = clahe_batch(gray, 0.04, *grid, device="cpu").numpy()
+    d = _mod256(ours, cpu)
+    assert d.max() <= 1 and (d > 0).mean() <= 1e-3
+
+
+def test_motion_stats_on_the_card_equals_cpu(cuda):
+    from lecturemath_tpu_torch.ops.frame_diff import motion_stats
+
+    rng = np.random.default_rng(2)
+    last = rng.integers(0, 256, (270, 480, 3), dtype=np.uint8)
+    frame = last.copy()
+    frame[40:120, 100:300] = rng.integers(0, 256, (80, 200, 3),
+                                          dtype=np.uint8)
+    for jump in (1, 3):
+        ours = motion_stats(torch.from_numpy(frame).to(cuda),
+                            torch.from_numpy(last).to(cuda), 15, jump)
+        theirs = motion_stats(frame, last, 15, jump, device="cpu")
+        assert ours.bbox.device.type == "cuda"
+        assert int(ours.total_changes) == int(theirs.total_changes) > 0
+        np.testing.assert_array_equal(ours.bbox.cpu().numpy(),
+                                      theirs.bbox.numpy())
+        for a, b in ((ours.centroid, theirs.centroid),
+                     (ours.deviation, theirs.deviation)):
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                       rtol=1e-5)
+
+
+def test_ckmeans_on_the_card_equals_cpu(cuda):
+    from lecturemath_tpu_torch.ops.ckmeans import ConvolutionalKMeans
+
+    rng = np.random.default_rng(3)
+    means = rng.normal(0, 1, (16, 32))
+    means /= np.linalg.norm(means, axis=1, keepdims=True)
+    data = (means[rng.integers(0, 16, 8192)]
+            + rng.normal(0, 0.05, (8192, 32))).astype(np.float32)
+    ours = ConvolutionalKMeans(data, 16, init_vectors=means, device=cuda)
+    theirs = ConvolutionalKMeans(data, 16, init_vectors=means, device="cpu")
+    assert ours.centers.device.type == "cuda"
+    for _ in range(10):
+        assert ours.update() == pytest.approx(theirs.update(), rel=1e-5)
+    np.testing.assert_allclose(ours.centers.cpu().numpy(),
+                               theirs.centers.numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(ours.assign(data), theirs.assign(data))

@@ -172,6 +172,39 @@ def test_scale_out_modules_are_checked(module):
     assert module in [_module_name(p) for p in _port_files()]
 
 
+WORKER_AND_OPS_MODULES = [
+    "lecturemath_tpu_torch.pipeline.device_worker",
+    *[f"lecturemath_tpu_torch.ops.{name}" for name in (
+        "clahe", "frame_diff", "ckmeans", "classical", "interval_index")],
+    "lecturemath_tpu_torch.models.caffe_loader",
+    *[f"lecturemath_tpu_torch.data.{name}" for name in (
+        "content_region", "region_tree")],
+]
+
+
+@pytest.mark.parametrize("module", WORKER_AND_OPS_MODULES)
+def test_worker_and_ops_modules_are_checked(module):
+    """The recycled device worker, the device and classical ops, the caffe
+    reader and the region data are among the files the checks above
+    walk."""
+    assert module in [_module_name(p) for p in _port_files()]
+
+
+def test_ops_package_exports_the_jax_names():
+    """``lecturemath_tpu_torch.ops`` exports every name the JAX package's
+    ``ops/__init__.py`` imports (read from its source, not imported)."""
+    import importlib
+
+    with open(os.path.join(REPO, "lecturemath_tpu", "ops",
+                           "__init__.py")) as f:
+        tree = ast.parse(f.read())
+    names = [alias.asname or alias.name for node in ast.walk(tree)
+             if isinstance(node, ast.ImportFrom) for alias in node.names]
+    ops = importlib.import_module(f"{PACKAGE}.ops")
+    assert len(names) >= 14
+    assert [name for name in names if not hasattr(ops, name)] == []
+
+
 _NO_OPENCV = r"""
 import os, sys
 BANNED = ("cv2", "PIL")
