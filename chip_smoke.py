@@ -118,9 +118,30 @@ then, in phases:
      similarity within 1e-5; ms an update); then
      CCTracker.add_frame(input_binary=False) over 16 RGB frames in a child
      with cv2 and PIL blocked, equal to the same run with them allowed.
+ 12. the lecture's tooling on the card's host, over phase 4's express
+     summary and phase 6's stage-01 artifact at 960x540, all 240 frames
+     (no kernel launches: it reuses their outputs). Without OpenCV:
+     export_gt_tree from the express keyframes, then the eval_summaries
+     CLI on the express summary against that tree (a self-evaluation that
+     must score 1.0); KeyFrameProjection (default, and one corner moved)
+     and KeyFrameWords over the exported keyframes, projections, word
+     annotations and unique words saved and loaded back equal;
+     TextAnnotationExporter's PNG branch (per frame and unique boxes) on
+     phase 9's LectureAnnotation with a speaker track and text regions;
+     prepare_text_masks' and prepare_cocotext's mask writers; and
+     interpolated_frames over the artifact, every sampled index equal to
+     its stage-01 binary. That half runs first in a child with cv2, PIL and
+     matplotlib blocked, then here: the files written must be byte-
+     identical. With OpenCV installed (one line says whether it is): the
+     240 frames as an MJPG AVI, the video_metrics CLI counting 240 frames,
+     the export_video CLI over the artifact (through ffmpeg where it is on
+     the PATH, else OpenCV's VideoWriter; one line says which) reading
+     back 240 frames, validate_dataset on 16 JPEGs, and visual_alignment
+     between two warped views of a keyframe. Each step's wall on the
+     card's host is printed beside the card's name and power limit.
 
-The launch counts are set to 0 just before each of the seven paths
-(phases 4, 6, 7, 8, 9, 10 and 11; in phase 10 around each mesh run, and
+The launch counts are set to 0 just before each of the eight paths
+(phases 4, 6, 7, 8, 9, 10, 11 and 12; in phase 10 around each mesh run, and
 the child processes count their own; in phase 11 the worker's children
 count theirs and report them with each stream) and read just after. Serving launches are graph replays times
 the launches each graph holds, counted by the service: the wrappers count
@@ -2423,6 +2444,20 @@ def write_gt_lecture(lecture, keyframes, segments, scale):
     return binaries
 
 
+def smoke_annotation():
+    """The lecture's LectureAnnotation (segments split at the era boundary,
+    a GT keyframe at the end of each era), which eval_segments reads."""
+    from lecturemath_tpu_torch.eval.lecture_annotation import \
+        LectureAnnotation
+
+    boundary = make_source().erase_times[0]
+    annotation = LectureAnnotation("SmokeDB", "smoke01", "smoke01.xml",
+                                   ["smoke01.mp4"], total_frames=N_FRAMES)
+    annotation.video_segments = [boundary]
+    annotation.video_segment_keyframes = [boundary - 1, N_FRAMES - 1]
+    return annotation
+
+
 def make_eval_tree():
     """The GT tree of both lectures, the GT of smoke01 exported as a
     summary of itself (baseline prefix ``self_``), the LectureAnnotation
@@ -2430,8 +2465,6 @@ def make_eval_tree():
     returns (config path, {lecture: keyframe count})."""
     import numpy as np
 
-    from lecturemath_tpu_torch.eval.lecture_annotation import \
-        LectureAnnotation
     from lecturemath_tpu_torch.pipeline.keyframes import export_summary
     from lecturemath_tpu_torch.utils.png import encode_png
     from lecturemath_tpu_torch.utils.synthetic import \
@@ -2450,11 +2483,7 @@ def make_eval_tree():
                    [(s * 1000.0, e * 1000.0) for s, e in segments], picks,
                    [t * 1000.0 for t in picks],
                    [np.repeat(b[:, :, None], 3, axis=2) for b in binaries])
-    annotation = LectureAnnotation("SmokeDB", "smoke01", "smoke01.xml",
-                                   ["smoke01.mp4"], total_frames=N_FRAMES)
-    annotation.video_segments = [boundary]
-    annotation.video_segment_keyframes = picks
-    annotation.save(os.path.join(WORKSPACE, "output", "eval_annotations",
+    smoke_annotation().save(os.path.join(WORKSPACE, "output", "eval_annotations",
                                  "SmokeDB_smoke01.xml"))
 
     hd = SyntheticRGBLectureSource(
@@ -3535,6 +3564,491 @@ def phase_device_worker(conf, summary, card):
     return launches, numbers
 
 
+# --------------------------------------------------------------- phase 12
+
+# the lecture's tooling on the card's host, over phase 4's express summary
+# and phase 6's stage-01 artifact: the cv2-free half writes under
+# TOOLING_OUT (once in a child with cv2, PIL and matplotlib blocked, once
+# here), the cv2 half under TOOLING_DIR
+TOOLING_DIR = os.path.join(WORKSPACE, "tooling")
+TOOLING_OUT = os.path.join(TOOLING_DIR, "out")
+TOOLING_BLOCK = ("cv2", "PIL", "matplotlib")
+# the annotator's edit of the second keyframe's projection: one corner of
+# the default quad (offset 10)
+TOOLING_CORNER, TOOLING_DELTA = 2, (-24.5, 13.25)
+# text regions on the 960x540 frame (annotation canvas = frame), each at the
+# lecture's first and last frame; "board" is not a text region
+TOOLING_TEXT = (
+    ("text_title", [(300, 30), (700, 30), (700, 90), (300, 90)],
+     [(310, 34), (720, 34), (720, 96), (310, 96)]),
+    ("text_eq1", [(120, 200), (520, 190), (530, 260), (110, 270)],
+     [(120, 200), (520, 190), (530, 260), (110, 270)]),
+    ("text_eq2", [(560, 300), (900, 300), (900, 380), (560, 380)],
+     [(500, 320), (860, 330), (850, 400), (505, 395)]),
+    ("board", [(0, 0), (959, 0), (959, 539), (0, 539)],
+     [(0, 0), (959, 0), (959, 539), (0, 539)]))
+# the speaker's box (x, y, w, h) at sparse frames, walking past the text
+TOOLING_SPEAKER = {0: (40.0, 120.0, 220.0, 400.0),
+                   120: (420.0, 140.0, 220.0, 400.0),
+                   239: (760.0, 120.0, 200.0, 420.0)}
+TOOLING_TEXT_STEP = 20
+# text polygons for the dataset-prep mask writers (LSVT-style points, and
+# COCO-Text flat polygons), some past the frame
+TOOLING_MASK_REGIONS = 24
+TOOLING_JPEGS, TOOLING_SMALL_JPEGS = 16, 2
+# the two views visual_alignment aligns: corners of the keyframe moved by
+TOOLING_VIEWS = (((0, 0), (14, -9), (-11, 6), (5, 12)),
+                 ((-8, 10), (3, 4), (12, -7), (-6, -13)))
+TOOLING_MIN_ALIGNMENT, TOOLING_MAX_CORNER_PX = 0.5, 2.0
+
+
+def tooling_gt(out, inputs):
+    """The GT tree of the express keyframes, the express summary beside it,
+    and cli.eval_summaries over both; returns the self-evaluation's
+    recall/precision by min R/P."""
+    import contextlib
+    import io
+
+    from lecturemath_tpu_torch.cli import eval_summaries
+    from lecturemath_tpu_torch.core.config import Config
+    from lecturemath_tpu_torch.core.metadata import MetaDataDB
+    from lecturemath_tpu_torch.eval.gt_authoring import export_gt_tree
+    from lecturemath_tpu_torch.eval.summary_eval import SummaryEvaluator
+    from lecturemath_tpu_torch.pipeline.keyframes import export_summary
+
+    indices = [int(i) for i in inputs["indices"]]
+    times = [float(t) for t in inputs["times"]]
+    keyframes = list(inputs["keyframes"])
+    bounds = [0] + [i + 1 for i in indices]
+    segments = [(bounds[k], indices[k]) for k in range(len(indices))]
+    output = os.path.join(out, "output")
+    export_gt_tree(os.path.join(output, "annotations"), "SmokeDB", "smoke01",
+                   indices, times, [kf[:, :, 0] for kf in keyframes],
+                   segments=segments, video_paths=["smoke01.mp4"],
+                   write_portions=True)
+    export_summary(os.path.join(output, "summaries", "SmokeDB_smoke01"),
+                   "SmokeDB", "smoke01", ["smoke01.mp4"], segments,
+                   [(s * 1000.0, e * 1000.0) for s, e in segments], indices,
+                   times, keyframes)
+    with open(os.path.join(out, "db.xml"), "w") as f:
+        f.write(DB_XML)
+    conf = os.path.join(out, "tooling.conf")
+    with open(conf, "w") as f:
+        f.write(CONFIG.format(ws=WORKSPACE).replace(
+            f"{WORKSPACE}/db.xml", f"{out}/db.xml").replace(
+            f"{WORKSPACE}/output", output))
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        eval_summaries.main(["eval_summaries", conf, "-l", "smoke01"])
+    if "Finished" not in printed.getvalue():
+        raise AssertionError("cli.eval_summaries did not finish")
+    config = Config.from_file(conf)
+    database = MetaDataDB.from_file(config.get_str("VIDEO_DATABASE_PATH"))
+    numbers = summary_numbers(SummaryEvaluator().evaluate_lecture(
+        config, database, database.get_lecture("smoke01")))
+    if not numbers or any(pair != (1.0, 1.0) for pair in numbers.values()):
+        raise AssertionError(f"the express summary against its own GT tree "
+                             f"does not score 1.0: {numbers}")
+    return numbers
+
+
+def tooling_words(out):
+    """Default and edited projections and word trees over the exported
+    keyframes; save and load projections, word annotations and unique
+    words; returns the word boxes of each keyframe."""
+    from lecturemath_tpu_torch.data.region_tree import RegionTree
+    from lecturemath_tpu_torch.eval.annotation import KeyframeAnnotation
+    from lecturemath_tpu_torch.eval.words import (
+        KeyFrameWords, default_word_groups, load_projections,
+        load_unique_words, load_word_annotations, save_projections,
+        save_unique_words, save_word_annotations, warped_inverted_binary)
+    from lecturemath_tpu_torch.utils.png import read_image
+
+    prefix = os.path.join(out, "output", "annotations", "SmokeDB_smoke01")
+    frames = KeyframeAnnotation.load_exported_keyframes(
+        os.path.join(prefix, "segments.xml"),
+        os.path.join(prefix, "keyframes") + "/", False)
+    for kf in frames:
+        kf.raw_image = read_image(os.path.join(prefix, "keyframes",
+                                               f"{kf.idx}.png"))
+        kf.binary_image = read_image(os.path.join(prefix, "binary",
+                                                  f"{kf.idx}.png"))
+    all_words = []
+    for k, kf in enumerate(frames):
+        words = KeyFrameWords.create_default(kf)
+        if k == 1:
+            projection = words.projection.copy()
+            moved = projection.src_points.copy()
+            moved[TOOLING_CORNER] += TOOLING_DELTA
+            projection.update_from_points(projection.src_points, moved)
+            words = KeyFrameWords(kf, projection, RegionTree.from_binary(
+                warped_inverted_binary(kf, projection)))
+        words.tree.segment_recursive()
+        all_words.append(words)
+    paths = {name: os.path.join(out, f"{name}.xml")
+             for name in ("projections", "word_annotations", "unique_words")}
+    save_projections(paths["projections"], [w.projection for w in all_words])
+    save_word_annotations(paths["word_annotations"], all_words)
+    _, groups = default_word_groups(all_words)
+    save_unique_words(paths["unique_words"], all_words, groups)
+    written = [w.get_words() for w in all_words]
+    loaded = load_word_annotations(paths["word_annotations"], frames)
+    _, loaded_groups = load_unique_words(paths["unique_words"], loaded)
+    projections = load_projections(paths["projections"])
+    if [w.get_words() for w in loaded] != written or \
+            len(loaded_groups) != len(groups) or \
+            len(projections) != len(frames):
+        raise AssertionError("the loaded word annotations differ from the "
+                             "written ones")
+    if not all(written):
+        raise AssertionError(f"a keyframe has no words: {written}")
+    return [[list(map(int, box)) for box in boxes] for boxes in written]
+
+
+def tooling_text(out):
+    """TextAnnotationExporter's PNG branch, per frame and unique boxes, on
+    phase 9's annotation with a speaker and text regions."""
+    from lecturemath_tpu_torch.eval.gt_authoring import set_speaker_track
+    from lecturemath_tpu_torch.eval.lecture_annotation import (DrawingInfo,
+                                                               TimelineObject)
+    from lecturemath_tpu_torch.eval.text_export import TextAnnotationExporter
+
+    annotation = smoke_annotation()
+    set_speaker_track(annotation, TOOLING_SPEAKER, fps=1.0)
+    for name, first, last in TOOLING_TEXT:
+        obj = TimelineObject(name, name, TimelineObject.SHAPE_POLYGON)
+        obj.set_location_at(0, 0.0, True, first)
+        obj.set_location_at(N_FRAMES - 1, (N_FRAMES - 1) * 1000.0, True,
+                            last)
+        annotation.video_objects[name] = obj
+    annotation.drawing_info = DrawingInfo((0, 0, WIDTH, HEIGHT),
+                                          (0, HEIGHT, WIDTH, 0),
+                                          (0, 0, WIDTH, HEIGHT))
+    annotation.save(os.path.join(out, "smoke01_text.xml"))
+    source = make_source()
+    counts = {}
+    for mode, name in ((TextAnnotationExporter.ALL_PER_FRAME, "per_frame"),
+                       (TextAnnotationExporter.UNIQUE_BOXES, "unique")):
+        exporter = TextAnnotationExporter(
+            annotation, ["text"], "speaker", 0.25, mode,
+            os.path.join(out, "text", name), export_images=True)
+        exporter.initialize(WIDTH, HEIGHT)
+        visible = occluded = 0
+        for t in range(0, N_FRAMES, TOOLING_TEXT_STEP):
+            _, shown, hidden = exporter.frame_visible_bboxes_state(t)
+            visible, occluded = visible + len(shown), occluded + len(hidden)
+            exporter.handle_frame(source.rgb_frame(t)[:, :, ::-1].copy(), t)
+        exporter.finalize()
+        counts[name] = (visible, occluded)
+    if counts["per_frame"][0] == 0 or counts["per_frame"][1] == 0:
+        raise AssertionError(f"text export: no visible or no occluded text "
+                             f"region (visible, occluded) {counts}")
+    return counts
+
+
+def tooling_masks(out):
+    """prepare_text_masks' and prepare_cocotext's mask writers at the
+    frame's size; returns the masks' ink pixels."""
+    import numpy as np
+
+    from lecturemath_tpu_torch.cli.prepare_cocotext import coco_polygon_mask
+    from lecturemath_tpu_torch.cli.prepare_text_masks import \
+        rasterize_text_regions
+    from lecturemath_tpu_torch.utils.png import write_image
+
+    rng = np.random.default_rng(12)
+    entries = [{"points": np.stack([rng.integers(-40, WIDTH + 40, k),
+                                    rng.integers(-40, HEIGHT + 40, k)],
+                                   1).tolist()}
+               for k in rng.integers(4, 9, TOOLING_MASK_REGIONS)]
+    table = {}
+    for k in range(TOOLING_MASK_REGIONS):
+        x, y = rng.uniform(-20, WIDTH), rng.uniform(-20, HEIGHT)
+        w, h = rng.uniform(20, 200), rng.uniform(10, 60)
+        table[str(k)] = {"polygon": [x, y, x + w, y + 2, x + w, y + h, x,
+                                     y + h - 3]}
+    os.makedirs(os.path.join(out, "masks"), exist_ok=True)
+    ink = {}
+    for name, mask in (
+            ("lsvt", rasterize_text_regions(entries, HEIGHT, WIDTH)),
+            ("coco", coco_polygon_mask(range(TOOLING_MASK_REGIONS), table,
+                                       HEIGHT, WIDTH))):
+        write_image(os.path.join(out, "masks", f"{name}.png"), mask)
+        ink[name] = int((mask > 0).sum())
+    return ink
+
+
+def tooling_frames():
+    """interpolated_frames over phase 6's stage-01 artifact, every frame
+    from 0 to the last sampled one; every sampled index must be the
+    artifact's binary bit for bit. Returns (frames, sampled)."""
+    import numpy as np
+
+    from lecturemath_tpu_torch.core.artifacts import ArtifactStore
+    from lecturemath_tpu_torch.pipeline.export_video import \
+        interpolated_frames
+    from lecturemath_tpu_torch.pipeline.video import decompress_png
+
+    store = ArtifactStore(os.path.join(WORKSPACE, "output", "temporal"))
+    _, indices, compressed = store.load("tempo_binary_", "smoke01")
+    binaries = decompress_png(compressed)
+    sampled = dict(zip((int(i) for i in indices), binaries))
+    total = int(indices[-1]) + 1
+    rendered = 0
+    for idx, frame in interpolated_frames(binaries, indices, 0, total):
+        rendered += 1
+        if idx in sampled and not np.array_equal(frame, sampled[idx]):
+            raise AssertionError(f"interpolated frame {idx} differs from "
+                                 f"the stage-01 binary")
+    if rendered != total or len(sampled) != N_FRAMES:
+        raise AssertionError(f"{rendered} frames rendered, {total} expected;"
+                             f" {len(sampled)} sampled")
+    return rendered, len(sampled)
+
+
+def tree_digest(root):
+    """sha256 of every file under root, by relative path."""
+    import hashlib
+
+    digest = hashlib.sha256()
+    count = 0
+    for base, dirs, names in sorted(os.walk(root)):
+        dirs.sort()
+        for name in sorted(names):
+            path = os.path.join(base, name)
+            digest.update(os.path.relpath(path, root).encode() + b"\0")
+            with open(path, "rb") as f:
+                digest.update(f.read())
+            count += 1
+    return digest.hexdigest(), count
+
+
+def tooling_run():
+    """The cv2-free half over the inputs phase 12 saved; returns each
+    step's result and wall, the digest of every file written and whether
+    cv2 was importable."""
+    import importlib.util
+
+    import numpy as np
+
+    shutil.rmtree(TOOLING_OUT, ignore_errors=True)
+    os.makedirs(TOOLING_OUT)
+    with np.load(os.path.join(TOOLING_DIR, "inputs.npz")) as data:
+        inputs = dict(data)
+    walls, results = {}, {}
+    for name, step in (("gt tree + eval_summaries",
+                        lambda: tooling_gt(TOOLING_OUT, inputs)),
+                       ("words", lambda: tooling_words(TOOLING_OUT)),
+                       ("text export", lambda: tooling_text(TOOLING_OUT)),
+                       ("mask writers", lambda: tooling_masks(TOOLING_OUT)),
+                       ("interpolated frames", tooling_frames)):
+        t0 = time.perf_counter()
+        results[name] = step()
+        walls[name] = time.perf_counter() - t0
+    digest, files = tree_digest(TOOLING_OUT)
+    return {"results": results, "walls": walls, "digest": digest,
+            "files": files,
+            "cv2_importable": importlib.util.find_spec("cv2") is not None}
+
+
+def tooling_child():
+    """Child (cv2, PIL and matplotlib blocked): tooling_run's result."""
+    print(json.dumps(tooling_run()), flush=True)
+    return 0
+
+
+def tooling_video_conf():
+    """The staged config (phase 6's artifact) over a database whose
+    lecture video is TOOLING_DIR/videos/smoke01.avi."""
+    with open(os.path.join(TOOLING_DIR, "db.xml"), "w") as f:
+        f.write(DB_XML.replace("smoke01.mp4", "smoke01.avi"))
+    with open(os.path.join(WORKSPACE, "staged.conf")) as f:
+        base = f.read()
+    conf = os.path.join(TOOLING_DIR, "video.conf")
+    with open(conf, "w") as f:
+        f.write(base.replace(f"{WORKSPACE}/db.xml",
+                             f"{TOOLING_DIR}/db.xml").replace(
+            f"{WORKSPACE}/videos", f"{TOOLING_DIR}/videos"))
+    return conf
+
+
+def tooling_video(ffmpeg):
+    """The lecture's 240 frames as an MJPG AVI at 30 fps (with a silent
+    audio track muxed in by ffmpeg where it is on the PATH, since the
+    export muxes the source's audio)."""
+    import cv2
+
+    videos = os.path.join(TOOLING_DIR, "videos")
+    os.makedirs(videos, exist_ok=True)
+    path = os.path.join(videos, "smoke01.avi")
+    silent = os.path.join(videos, "frames_only.avi") if ffmpeg else path
+    writer = cv2.VideoWriter(silent, cv2.VideoWriter_fourcc(*"MJPG"), 30.0,
+                             (WIDTH, HEIGHT))
+    if not writer.isOpened():
+        raise AssertionError("OpenCV cannot write an MJPG AVI")
+    source = make_source()
+    for t in range(N_FRAMES):
+        writer.write(source.rgb_frame(t)[:, :, ::-1])
+    writer.release()
+    if ffmpeg:
+        subprocess.run([ffmpeg, "-y", "-loglevel", "error", "-i", silent,
+                        "-f", "lavfi", "-i", "anullsrc=r=44100:cl=mono",
+                        "-shortest", "-c:v", "copy", "-c:a", "pcm_s16le",
+                        path], check=True, timeout=CHILD_TIMEOUT_S)
+    return path
+
+
+def tooling_cv2_half(keyframe, card):
+    """The steps that need OpenCV: the AVI, the video_metrics and
+    export_video CLIs, validate_dataset on JPEGs and visual_alignment;
+    returns each step's wall."""
+    import contextlib
+    import io
+
+    import cv2
+    import numpy as np
+
+    from lecturemath_tpu_torch.cli import (export_video, validate_dataset,
+                                           video_metrics)
+    from lecturemath_tpu_torch.eval.visual_alignment import \
+        compute_visual_alignment
+    from lecturemath_tpu_torch.pipeline.video_metrics import VideoMetrics
+
+    walls = {}
+    ffmpeg = shutil.which("ffmpeg")
+
+    def timed(name, fn):
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            result = fn()
+        walls[name] = time.perf_counter() - t0
+        return result, printed.getvalue()
+
+    video, _ = timed("MJPG AVI", lambda: tooling_video(ffmpeg))
+    conf = tooling_video_conf()
+    metrics_json = os.path.join(TOOLING_DIR, "metrics.json")
+    _, text = timed("cli.video_metrics", lambda: video_metrics.main(
+        ["video_metrics", conf, "-l", "smoke01", "-json", metrics_json]))
+    with open(metrics_json) as f:
+        counted = json.load(f)["smoke01"]["total_frames"]
+    if counted != N_FRAMES:
+        raise AssertionError(f"video_metrics counted {counted} frames of "
+                             f"{N_FRAMES}: {text}")
+
+    exported = os.path.join(TOOLING_DIR, "export", "smoke01_binary.mp4")
+    _, text = timed("cli.export_video", lambda: export_video.main(
+        ["export_video", conf, "-l", "smoke01", "-o", exported]))
+    for line in text.splitlines():
+        if not line.startswith("ffmpeg -y"):
+            log(f"  {line}")
+    read_back = VideoMetrics.from_video_files([exported]).total_frames
+    writer = "ffmpeg" if ffmpeg else "OpenCV VideoWriter"
+    if read_back != N_FRAMES:
+        raise AssertionError(f"the exported video ({writer}) reads back "
+                             f"{read_back} frames of {N_FRAMES}")
+
+    jpegs = os.path.join(TOOLING_DIR, "jpegs")
+    os.makedirs(jpegs, exist_ok=True)
+    source = make_source()
+    for k in range(TOOLING_JPEGS):
+        frame = source.rgb_frame(15 * k)[:, :, ::-1]
+        if k < TOOLING_SMALL_JPEGS:
+            frame = frame[:200, :300]
+        cv2.imwrite(os.path.join(jpegs, f"{k:02d}.jpg"), frame)
+    with open(os.path.join(jpegs, f"{TOOLING_JPEGS - 1:02d}.jpg"),
+              "wb") as f:
+        f.write(b"not a JPEG")
+    _, text = timed("validate_dataset", lambda: validate_dataset.main(
+        ["validate_dataset", jpegs]))
+    want = f"1 unloadable, {TOOLING_SMALL_JPEGS} below 256px"
+    if want not in text:
+        raise AssertionError(f"validate_dataset: expected '{want}': {text}")
+
+    gray = np.ascontiguousarray(keyframe[:, :, 0])
+    corners = np.float32([[0, 0], [WIDTH, 0], [WIDTH, HEIGHT], [0, HEIGHT]])
+    views, maps = [], []
+    for moved in TOOLING_VIEWS:
+        H = cv2.getPerspectiveTransform(corners, corners + np.float32(moved))
+        maps.append(H)
+        views.append(cv2.warpPerspective(255 - gray, H, (WIDTH, HEIGHT)))
+    (H, score), _ = timed("visual_alignment", lambda: compute_visual_alignment(
+        [views[0]], [views[1]]))
+    want_H = maps[0] @ np.linalg.inv(maps[1])
+    probe = corners.reshape(-1, 1, 2).astype(np.float64)
+    off = float(np.abs(cv2.perspectiveTransform(probe, H)
+                       - cv2.perspectiveTransform(probe, want_H)).max()) \
+        if H is not None else float("inf")
+    log(f"visual_alignment of two warped views of keyframe 2: score "
+        f"{score:.4f}, corners within {off:.3f} px of the true map")
+    if score < TOOLING_MIN_ALIGNMENT or off > TOOLING_MAX_CORNER_PX:
+        raise AssertionError(f"visual_alignment: score {score}, corner "
+                             f"error {off} px")
+    log(f"tooling with OpenCV {cv2.__version__}: {N_FRAMES}-frame MJPG AVI"
+        f", video_metrics {counted} frames, export_video through {writer} "
+        f"read back {read_back} frames, validate_dataset '{want}' on "
+        f"{TOOLING_JPEGS} JPEGs; walls s "
+        f"{json.dumps({k: round(v, 3) for k, v in walls.items()})} on the "
+        f"card's host; {card}")
+    return walls, writer
+
+
+def phase_tooling(counters, summary, card):
+    """Phase 12: the tooling over phase 4's summary and phase 6's artifact,
+    cv2-free (blocked child, then here, byte-identical), then with OpenCV
+    where it is installed; returns (launch counts, numbers)."""
+    import importlib.util
+
+    import numpy as np
+
+    os.makedirs(TOOLING_DIR, exist_ok=True)
+    np.savez(os.path.join(TOOLING_DIR, "inputs.npz"),
+             indices=np.asarray(summary["indices"]),
+             times=np.asarray(summary["times"]),
+             keyframes=np.stack(summary["keyframes"]))
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    blocked, = child_results([start_child("tooling_child()",
+                                          block=TOOLING_BLOCK)],
+                             "tooling, cv2 blocked")
+    child_wall = time.perf_counter() - t0
+    allowed = tooling_run()
+    launches = counted(counters)
+    log(f"tooling, cv2-free half over the express summary "
+        f"({len(summary['indices'])} keyframes at {WIDTH}x{HEIGHT}) and the "
+        f"stage-01 artifact ({N_FRAMES} frames): walls s "
+        f"{json.dumps({k: round(v, 3) for k, v in allowed['walls'].items()})}"
+        f" here, {json.dumps({k: round(v, 3) for k, v in blocked['walls'].items()})}"
+        f" in the blocked child ({child_wall:.3f} s with its start); "
+        f"{allowed['files']} files, sha256 {allowed['digest'][:16]} here, "
+        f"{blocked['digest'][:16]} blocked; results "
+        f"{json.dumps(allowed['results']['gt tree + eval_summaries'])} "
+        f"(self-evaluation), words a keyframe "
+        f"{[len(w) for w in allowed['results']['words']]}, text regions "
+        f"(visible, occluded) {allowed['results']['text export']}, mask ink "
+        f"{allowed['results']['mask writers']}, frames (rendered, sampled) "
+        f"{allowed['results']['interpolated frames']}; launches {launches};"
+        f" {card}")
+    if blocked["cv2_importable"]:
+        raise AssertionError("cv2 was importable in the blocked child")
+    # the child's results came through JSON: compare them as JSON
+    if (blocked["digest"], blocked["files"], blocked["results"]) != \
+            (allowed["digest"], allowed["files"],
+             json.loads(json.dumps(allowed["results"]))):
+        raise AssertionError("the tooling's output with cv2 blocked differs "
+                             "from its output with cv2 allowed")
+    numbers = {"walls": allowed["walls"], "blocked_walls": blocked["walls"],
+               "files": allowed["files"]}
+    if importlib.util.find_spec("cv2") is None:
+        log("tooling, OpenCV half: did not run (cv2 is not installed)")
+    else:
+        log("tooling, OpenCV half: runs (cv2 is installed)")
+        numbers["cv2_walls"], numbers["video_writer"] = tooling_cv2_half(
+            summary["keyframes"][-1], card)
+    return launches, numbers
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "lecturemath_tpu_torch")):
         print("chip_smoke.py: lecturemath_tpu_torch not found beside this "
@@ -3611,6 +4125,8 @@ def main():
     scale = {}
     worker_launches = {}
     worker = {}
+    tooling_launches = {}
+    tooling = {}
     try:
         conf, _ = make_workspace()
         try:
@@ -3661,6 +4177,12 @@ def main():
         except Exception:  # noqa: BLE001 — report every phase, then fail
             traceback.print_exc()
             failures.append("device-worker path and device ops")
+        torch.cuda.empty_cache()
+        try:
+            tooling_launches, tooling = phase_tooling(counters, summary, card)
+        except Exception:  # noqa: BLE001 — report every phase, then fail
+            traceback.print_exc()
+            failures.append("tooling")
     except Exception:  # noqa: BLE001 — report every phase, then fail
         traceback.print_exc()
         failures.append("workspace")
@@ -3682,7 +4204,8 @@ def main():
                 "training": training_launches.get(name, 0),
                 "evaluation": evaluation_launches.get(name, 0),
                 "scale_out": scale_launches.get(name, 0),
-                "device_worker": worker_launches.get(name, 0)}
+                "device_worker": worker_launches.get(name, 0),
+                "tooling": tooling_launches.get(name, 0)}
     for key in SERVING_KERNELS:
         if key in records and serving:
             device_us = {bucket: numbers["device_us"]
@@ -3710,6 +4233,8 @@ def main():
         log(f"scale-out on {card}: " + json.dumps(scale))
     if worker:
         log(f"device worker and device ops on {card}: " + json.dumps(worker))
+    if tooling:
+        log(f"tooling on the card's host, {card}: " + json.dumps(tooling))
     log(f"express {summary.get('fps', 0):.2f} fps on {card}")
     log(card)
     log(json.dumps({"kernels": list(records.values())}))

@@ -16,7 +16,11 @@ Each function reproduces one library call's arithmetic:
     OpenCV's 20-bit integer BT.601 arithmetic;
   * ``fill_poly``: ``cv2.fillPoly(img, [pts], color)`` with the default
     ``lineType=8`` and ``shift=0`` (8-connected outline plus a 16-bit
-    fixed-point scanline fill, both clipped to the image as OpenCV clips).
+    fixed-point scanline fill, both clipped to the image as OpenCV clips);
+  * ``find_homography``, ``perspective_transform`` and ``warp_perspective``:
+    ``cv2.findHomography`` (method 0, 4 points), ``cv2.perspectiveTransform``
+    and ``cv2.warpPerspective`` (INTER_LINEAR, BORDER_CONSTANT on uint8), the
+    last in OpenCV 5.0's float32 arithmetic.
 
 Images are uint8 [H, W] or [H, W, C]; sizes are (width, height) as for cv2.
 The coefficient tables are built once for each (source, destination) size
@@ -36,7 +40,8 @@ from .. import native
 __all__ = ["resize_nearest", "resize_area", "resize_linear", "halve_lanczos",
            "rgb_to_yuv420", "rgb_to_gray", "rgb_to_hsv", "hsv_to_rgb",
            "ellipse_kernel", "erode", "dilate", "morph_close", "morph_open",
-           "median_blur", "fill_poly"]
+           "median_blur", "fill_poly", "find_homography",
+           "perspective_transform", "warp_perspective"]
 
 
 def _check(img: np.ndarray, size: Tuple[int, int]) -> Tuple[int, int]:
@@ -729,3 +734,156 @@ def fill_poly(img: np.ndarray, pts: np.ndarray, color=255) -> np.ndarray:
     filled = np.cumsum(runs[:, :width], axis=1) > 0
     img[rows[0]:rows[-1] + 1][filled] = color
     return img
+
+
+# -------------------------------------------------------------- homography
+
+# the spread under which OpenCV's homography kernel gives up (DBL_EPSILON),
+# and the weight under which perspectiveTransform gives (0, 0) (FLT_EPSILON)
+_DBL_EPSILON = float(np.finfo(np.float64).eps)
+_FLT_EPSILON = float(np.finfo(np.float32).eps)
+# the pixels a vector step of OpenCV's float warp covers (its AVX2 build: two
+# registers of 8 floats); the row's remainder goes through its scalar loop
+_WARP_STEP = 16
+
+
+def find_homography(src: np.ndarray, dst: np.ndarray):
+    """``cv2.findHomography(src, dst)`` (method 0) for 4 point pairs: the
+    points rounded to float32, each set centred on its mean and scaled by
+    its mean absolute deviation, the eigenvector of the smallest eigenvalue
+    of the 9x9 normal matrix, denormalized and scaled to H[2, 2] = 1. With 4
+    points the solution is exact, so it agrees with OpenCV's Jacobi
+    eigensolver to rounding. Returns a float64 [3, 3], or None where a set
+    has no spread in x or y (OpenCV returns an empty matrix)."""
+    src = np.asarray(src, np.float32).reshape(-1, 2).astype(np.float64)
+    dst = np.asarray(dst, np.float32).reshape(-1, 2).astype(np.float64)
+    if len(src) != 4 or len(dst) != 4:
+        raise ValueError(f"find_homography takes 4 point pairs, got "
+                         f"{len(src)} and {len(dst)}")
+    count = len(src)
+    c_src, c_dst = src.mean(axis=0), dst.mean(axis=0)
+    s_src = np.abs(src - c_src).sum(axis=0)
+    s_dst = np.abs(dst - c_dst).sum(axis=0)
+    if (np.abs(s_src) < _DBL_EPSILON).any() or \
+            (np.abs(s_dst) < _DBL_EPSILON).any():
+        return None
+    s_src, s_dst = count / s_src, count / s_dst
+    inv_norm_dst = np.array([[1.0 / s_dst[0], 0.0, c_dst[0]],
+                             [0.0, 1.0 / s_dst[1], c_dst[1]],
+                             [0.0, 0.0, 1.0]])
+    norm_src = np.array([[s_src[0], 0.0, -c_src[0] * s_src[0]],
+                         [0.0, s_src[1], -c_src[1] * s_src[1]],
+                         [0.0, 0.0, 1.0]])
+    X, Y = ((src - c_src) * s_src).T
+    x, y = ((dst - c_dst) * s_dst).T
+    zero, one = np.zeros(count), np.ones(count)
+    rows_x = np.stack([X, Y, one, zero, zero, zero, -x * X, -x * Y, -x], 1)
+    rows_y = np.stack([zero, zero, zero, X, Y, one, -y * X, -y * Y, -y], 1)
+    normal = rows_x.T @ rows_x + rows_y.T @ rows_y
+    _, vectors = np.linalg.eigh(normal)
+    h = inv_norm_dst @ vectors[:, 0].reshape(3, 3) @ norm_src
+    return h * (1.0 / h[2, 2])
+
+
+def perspective_transform(points: np.ndarray, H: np.ndarray) -> np.ndarray:
+    """``cv2.perspectiveTransform`` of 2-D points ([N, 2] or [N, 1, 2],
+    same shape back) by a 3x3 matrix, in float64: each point times the
+    reciprocal of its weight, (0, 0) where the weight is within FLT_EPSILON
+    of 0."""
+    points = np.asarray(points, np.float64)
+    m = np.asarray(H, np.float64).reshape(9)
+    x, y = points.reshape(-1, 2).T
+    w = x * m[6] + y * m[7] + m[8]
+    live = np.abs(w) > _FLT_EPSILON
+    w = np.divide(1.0, w, out=np.zeros_like(w), where=live)
+    out = np.stack([(x * m[0] + y * m[1] + m[2]) * w,
+                    (x * m[3] + y * m[4] + m[5]) * w], axis=1)
+    out[~live] = 0.0
+    return out.reshape(points.shape)
+
+
+def _invert3(m: np.ndarray) -> np.ndarray:
+    """``cv::invert`` of a 3x3 double matrix (DECOMP_LU): the adjugate over
+    the determinant, in OpenCV's order of operations; zeros if singular."""
+    det = (m[0, 0] * (m[1, 1] * m[2, 2] - m[1, 2] * m[2, 1])
+           - m[0, 1] * (m[1, 0] * m[2, 2] - m[1, 2] * m[2, 0])
+           + m[0, 2] * (m[1, 0] * m[2, 1] - m[1, 1] * m[2, 0]))
+    if det == 0:
+        return np.zeros((3, 3))
+    d = 1.0 / det
+    return np.array([
+        [(m[1, 1] * m[2, 2] - m[1, 2] * m[2, 1]) * d,
+         (m[0, 2] * m[2, 1] - m[0, 1] * m[2, 2]) * d,
+         (m[0, 1] * m[1, 2] - m[0, 2] * m[1, 1]) * d],
+        [(m[1, 2] * m[2, 0] - m[1, 0] * m[2, 2]) * d,
+         (m[0, 0] * m[2, 2] - m[0, 2] * m[2, 0]) * d,
+         (m[0, 2] * m[1, 0] - m[0, 0] * m[1, 2]) * d],
+        [(m[1, 0] * m[2, 1] - m[1, 1] * m[2, 0]) * d,
+         (m[0, 1] * m[2, 0] - m[0, 0] * m[2, 1]) * d,
+         (m[0, 0] * m[1, 1] - m[0, 1] * m[1, 0]) * d]])
+
+
+def _fma(a, b, c) -> np.ndarray:
+    """a * b + c rounded once to float32, for float32 operands (the product
+    is exact in float64)."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(np.float32)
+
+
+def _warp_coords(m: np.ndarray, width: int, height: int):
+    """Source x and y of every destination pixel, as OpenCV's float warp
+    computes them from the inverse map ``m`` (float32 [3, 3]): a vector
+    step takes x * m0 + (y * m1 + m2) fused, the remainder of the row
+    x * m0 + y * m1 fused, plus m2; then the quotient by the weight."""
+    xs = np.arange(width, dtype=np.float32)[None, :]
+    ys = np.arange(height, dtype=np.float32)[:, None]
+    vector = xs < width - width % _WARP_STEP
+
+    def row(r):
+        return np.where(vector, _fma(xs, m[r, 0], ys * m[r, 1] + m[r, 2]),
+                        _fma(xs, m[r, 0], ys * m[r, 1]) + m[r, 2])
+
+    weight = row(2)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return row(0) / weight, row(1) / weight
+
+
+def warp_perspective(img: np.ndarray, H: np.ndarray, size: Tuple[int, int],
+                     border_value=0) -> np.ndarray:
+    """``cv2.warpPerspective(img, H, size, borderValue=border_value)``
+    (INTER_LINEAR, BORDER_CONSTANT) of a uint8 [H, W] or [H, W, C] image,
+    as OpenCV 5.0 (and 4.11 on) warps one: H inverted by ``cv::invert``,
+    the map in float32, each destination pixel's source point by
+    ``_warp_coords``, its floor and fraction, the four neighbours (the
+    border value off the image) blended by fused steps along x, then y,
+    and rounded half to even. Bit for bit with OpenCV's x86 AVX2 build."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3):
+        raise ValueError(f"expected a uint8 [H, W] or [H, W, C] image, got "
+                         f"{img.dtype} {img.shape}")
+    width, height = (int(v) for v in size)
+    src_h, src_w = img.shape[:2]
+    out_shape = (height, width) + img.shape[2:]
+    if width <= 0 or height <= 0:
+        return np.zeros(out_shape, np.uint8)
+    m = _invert3(np.asarray(H, np.float64).reshape(3, 3)).astype(np.float32)
+    sx, sy = _warp_coords(m, width, height)
+    with np.errstate(invalid="ignore"):
+        fx, fy = np.floor(sx), np.floor(sy)
+        off = ~((fx >= -1) & (fx < src_w) & (fy >= -1) & (fy < src_h))
+    # a pixel off the image blends four border pixels of the padding
+    ax = np.where(off, 0, sx - fx).astype(np.float32)
+    ay = np.where(off, 0, sy - fy).astype(np.float32)
+    ix = np.where(off, src_w, fx).astype(np.int64) + 1
+    iy = np.where(off, src_h, fy).astype(np.int64) + 1
+    pad = ((1, 2), (1, 2)) + ((0, 0),) * (img.ndim - 2)
+    padded = np.pad(img, pad, constant_values=np.uint8(border_value)
+                    ).astype(np.float32)
+    if img.ndim == 3:
+        ax, ay = ax[..., None], ay[..., None]
+    p00, p01 = padded[iy, ix], padded[iy, ix + 1]
+    p10, p11 = padded[iy + 1, ix], padded[iy + 1, ix + 1]
+    top = _fma(ax, p01 - p00, p00)
+    bottom = _fma(ax, p11 - p10, p10)
+    value = _fma(ay, bottom - top, top)
+    return np.clip(np.rint(value), 0, 255).astype(np.uint8).reshape(out_shape)

@@ -1056,3 +1056,51 @@ def test_ckmeans_on_the_card_equals_cpu(cuda):
     np.testing.assert_allclose(ours.centers.cpu().numpy(),
                                theirs.centers.numpy(), rtol=1e-5, atol=1e-6)
     np.testing.assert_array_equal(ours.assign(data), theirs.assign(data))
+
+
+def test_export_binary_video_from_a_card_artifact(cuda, tmp_path,
+                                                  monkeypatch):
+    """The stage-01 artifact of frames the card binarized (K2 and K1), as
+    stage01_binarize relays it, rendered by export_binary_video: every
+    sampled frame's PNG (kept by making removal a no-op) is the artifact's
+    binary in every channel. The video itself needs ffmpeg or OpenCV; the
+    frames need neither."""
+    import importlib.util
+    import os
+    import shutil
+
+    from lecturemath_tpu_torch.core.artifacts import ArtifactStore
+    from lecturemath_tpu_torch.pipeline.binarize import Binarizer
+    from lecturemath_tpu_torch.pipeline.export_video import \
+        export_binary_video
+    from lecturemath_tpu_torch.pipeline.video import (ArraySource,
+                                                      compress_png,
+                                                      decompress_png)
+    from lecturemath_tpu_torch.utils.png import read_image
+
+    binarizer = Binarizer.from_config(_worker_config(tmp_path), batch_size=4)
+    assert binarizer.device.type == "cuda"
+    before = (threshold_pack.launches, conv_same_nhwc.launches)
+    times, indices, binaries = binarizer.process_source(
+        ArraySource(_serving_frames(10)))
+    assert threshold_pack.launches > before[0]
+    assert conv_same_nhwc.launches > before[1]
+    store = ArtifactStore(str(tmp_path / "temporal"))
+    store.save((times, indices, compress_png(binaries)), "tempo_binary_",
+               "lec")
+    lecture = type("Lecture", (), {"id": "lec"})()
+    out = str(tmp_path / "lec.mp4")
+    monkeypatch.setattr(os, "remove", lambda path: None)
+    if shutil.which("ffmpeg") or importlib.util.find_spec("cv2"):
+        assert export_binary_video(store, "tempo_binary_", lecture, [], out,
+                                   fps=30.0) == out
+    else:
+        with pytest.raises(ImportError):
+            export_binary_video(store, "tempo_binary_", lecture, [], out,
+                                fps=30.0)
+    _, saved_indices, compressed = store.load("tempo_binary_", "lec")
+    assert list(saved_indices) == list(indices)
+    for idx, binary in zip(saved_indices, decompress_png(compressed)):
+        rendered = read_image(str(tmp_path / "lec.mp4_frames" / f"{idx}.png"))
+        np.testing.assert_array_equal(
+            rendered, np.repeat(binary[:, :, None], 3, axis=2))

@@ -190,6 +190,27 @@ def test_worker_and_ops_modules_are_checked(module):
     assert module in [_module_name(p) for p in _port_files()]
 
 
+TOOLING_MODULES = [
+    "lecturemath_tpu_torch.utils.geometry",
+    "lecturemath_tpu_torch.utils.visualizer",
+    *[f"lecturemath_tpu_torch.pipeline.{name}" for name in (
+        "video_metrics", "export_video")],
+    *[f"lecturemath_tpu_torch.eval.{name}" for name in (
+        "gt_authoring", "text_export", "visual_alignment", "words")],
+    *[f"lecturemath_tpu_torch.cli.{name}" for name in (
+        "video_metrics", "export_video", "vis_gt_intervals",
+        "prepare_text_masks", "prepare_cocotext", "validate_dataset")],
+]
+
+
+@pytest.mark.parametrize("module", TOOLING_MODULES)
+def test_tooling_modules_are_checked(module):
+    """The video export and metrics, the visualizer, the ground-truth
+    tooling and the dataset-prep CLIs are among the files the checks above
+    walk."""
+    assert module in [_module_name(p) for p in _port_files()]
+
+
 def test_ops_package_exports_the_jax_names():
     """``lecturemath_tpu_torch.ops`` exports every name the JAX package's
     ``ops/__init__.py`` imports (read from its source, not imported)."""
