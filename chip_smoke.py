@@ -139,9 +139,31 @@ then, in phases:
      back 240 frames, validate_dataset on 16 JPEGs, and visual_alignment
      between two warped views of a keyframe. Each step's wall on the
      card's host is printed beside the card's name and power limit.
+ 13. the four browser editors on the card's host (no kernel launches),
+     each through its HTTP server on a free local port: the GT editor over
+     a GT tree of phase 4's express keyframes (their lecture frames as the
+     raw keyframes): threshold grid, strokes at radius 1-4 (points and
+     polylines, paint and erase), an Otsu and a threshold portion, move,
+     copy and reject, the chalkboard method, save, then the eval_summaries
+     CLI of the express summary against the edited tree; the word
+     annotator over that tree (one corner of a quad moved, word trees,
+     unique words, unique CCs matched through a projection by the nearest
+     warp, formulas, save and reload equal); the annotation editor over
+     the 240 frames written as a PNG image list (splits, keyframes, a
+     speaker with two keyposes, undo/redo, frames without objects, save
+     and reload equal); the ST3D visualizer loaded from phase 6's stage-
+     02/03 artifacts as its CLI loads them (all 240 samples in binary
+     mode, five in the stable and reconstructed modes, queries under ink
+     pixels). That runs first in a child with cv2, PIL and matplotlib
+     blocked, then here: the files written and every answer (JSON, and PNG
+     bytes by sha256) must be equal. With OpenCV installed: the labelled
+     frames, and the port's circle, line (thickness 2-8) and Otsu held
+     against it on seeded cases (0 may differ), the nearest warp and gray
+     counted only. Each step's wall is printed beside the card's name and
+     power limit.
 
-The launch counts are set to 0 just before each of the eight paths
-(phases 4, 6, 7, 8, 9, 10, 11 and 12; in phase 10 around each mesh run, and
+The launch counts are set to 0 just before each of the nine paths
+(phases 4, 6, 7, 8, 9, 10, 11, 12 and 13; in phase 10 around each mesh run, and
 the child processes count their own; in phase 11 the worker's children
 count theirs and report them with each stream) and read just after. Serving launches are graph replays times
 the launches each graph holds, counted by the service: the wrappers count
@@ -4049,6 +4071,531 @@ def phase_tooling(counters, summary, card):
     return launches, numbers
 
 
+# --------------------------------------------------------------- phase 13
+
+# the four browser editors on the card's host, over phase 4's express
+# keyframes (with their lecture frames as the raw keyframes), the lecture as
+# a PNG image list and phase 6's stage-02/03 artifacts: each session writes
+# under EDITORS_OUT, once in a child with cv2, PIL and matplotlib blocked,
+# once here
+EDITORS_DIR = os.path.join(WORKSPACE, "editors")
+EDITORS_OUT = os.path.join(EDITORS_DIR, "out")
+EDITORS_FRAMES = os.path.join(EDITORS_DIR, "frames")
+EDITORS_BLOCK = ("cv2", "PIL", "matplotlib")
+# GT editor strokes (points, radius, erase) on the 960x540 keyframe: single
+# points and polylines at radius 1-4, paint and erase, one past the edge
+EDITORS_STROKES = (
+    ([[120, 400]], 1, False), ([[300, 80]], 3, False),
+    ([[50, 50], [300, 120], [440, 300]], 2, False),
+    ([[500, 400], [700, 410], [710, 520]], 3, True),
+    ([[900, 500], [975, 560], [940, 600]], 4, False),
+    ([[20, 530], [22, 520], [30, 500]], 1, True),
+    ([[600, 300]], 4, True))
+# portions added on the first keyframe: x, y, w, h, source, dark
+EDITORS_PORTIONS = ((40, 40, 240, 160, "otsu", False),
+                    (320, 60, 200, 140, "threshold", False))
+# the word annotator's edit of keyframe 1's quad: one corner moved
+EDITORS_CORNER, EDITORS_DELTA = 2, (-30.5, 18.25)
+# the unique-CC match of keyframe 1 against keyframe 0 goes through this
+# projection (the nearest warp of a 960x540 int32 label image)
+EDITORS_CC_MATRIX = [[1.0, 0.01, 3.5], [-0.005, 1.0, 2.25],
+                     [2e-5, -1e-5, 1.0]]
+# the annotation editor's speaker box at two keyposes, its segment splits
+# and keyframes; the frames served in the blocked child have no object (a
+# boundary flash and a keyframe marker, a marker, none), the labelled ones
+# are served where cv2 is installed
+EDITORS_SPEAKER = ((10, [[40, 120], [260, 520]]),
+                   (200, [[700, 120], [940, 520]]))
+EDITORS_SPLITS, EDITORS_MARKS = (5, 120), (5, 220)
+EDITORS_PLAIN_FRAMES = (0, 5, 220, 239)
+EDITORS_LABELLED_FRAMES = (10, 100, 200)
+# ST3D samples served in the stable and reconstructed modes, and the ink
+# pixels queried in each
+EDITORS_ST3D_SAMPLES = (0, 60, 119, 120, 239)
+EDITORS_QUERIES = 8
+# seeded cases of each primitive held against the host's cv2
+EDITORS_CASES = 300
+
+
+class EditorClient:
+    """The page's side of an editor's HTTP surface: every answer kept (JSON
+    decoded, PNGs as their sha256, errors as their status)."""
+
+    def __init__(self, server):
+        self.base = f"http://127.0.0.1:{server.server_address[1]}"
+        self.answers = []
+
+    def _answer(self, request):
+        import hashlib
+        import urllib.error
+        import urllib.request
+
+        try:
+            with urllib.request.urlopen(request,
+                                        timeout=HTTP_TIMEOUT_S) as r:
+                body, kind = r.read(), r.headers.get("Content-Type")
+        except urllib.error.HTTPError as err:
+            self.answers.append(["error", err.code])
+            return None
+        if kind == "image/png":
+            if body[:4] != b"\x89PNG":
+                raise AssertionError("an image route sent no PNG")
+            self.answers.append(["png", hashlib.sha256(body).hexdigest()])
+            return body
+        value = json.loads(body)
+        if isinstance(value, dict) and value.get("ok") is False:
+            raise AssertionError(f"an editor refused a request: {value}")
+        self.answers.append(["json", value])
+        return value
+
+    def get(self, path):
+        return self._answer(self.base + path)
+
+    def post(self, path, body):
+        import urllib.request
+
+        return self._answer(urllib.request.Request(
+            self.base + path, data=json.dumps(body).encode(),
+            method="POST"))
+
+
+def served(module, session, drive):
+    """``drive(client)`` against ``module.serve(session)`` on a free local
+    port; returns the client's answers."""
+    import threading
+
+    server = module.serve(session, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    client = EditorClient(server)
+    try:
+        drive(client)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    return client.answers
+
+
+def editors_tree(out, inputs):
+    """The GT tree of the express keyframes (raw = their lecture frames),
+    the express summary beside it and a config; returns (prefix, conf)."""
+    from lecturemath_tpu_torch.eval.gt_authoring import export_gt_tree
+    from lecturemath_tpu_torch.pipeline.keyframes import export_summary
+
+    indices = [int(i) for i in inputs["indices"]]
+    times = [float(t) for t in inputs["times"]]
+    keyframes = list(inputs["keyframes"])
+    bounds = [0] + [i + 1 for i in indices]
+    segments = [(bounds[k], indices[k]) for k in range(len(indices))]
+    output = os.path.join(out, "output")
+    prefix = export_gt_tree(
+        os.path.join(output, "annotations"), "SmokeDB", "smoke01", indices,
+        times, [kf[:, :, 0] for kf in keyframes], list(inputs["raw"]),
+        segments=segments, video_paths=["smoke01.mp4"], write_portions=True)
+    export_summary(os.path.join(output, "summaries", "SmokeDB_smoke01"),
+                   "SmokeDB", "smoke01", ["smoke01.mp4"], segments,
+                   [(s * 1000.0, e * 1000.0) for s, e in segments], indices,
+                   times, keyframes)
+    with open(os.path.join(out, "db.xml"), "w") as f:
+        f.write(DB_XML)
+    conf = os.path.join(out, "editors.conf")
+    with open(conf, "w") as f:
+        f.write(CONFIG.format(ws=WORKSPACE).replace(
+            f"{WORKSPACE}/db.xml", f"{out}/db.xml").replace(
+            f"{WORKSPACE}/output", output))
+    return prefix, conf
+
+
+def editors_gt(prefix, conf):
+    """The GT editor over HTTP: threshold grid, strokes, an Otsu and a
+    threshold portion, move / copy / reject, the chalkboard method, save;
+    then cli.eval_summaries of the express summary against the edited
+    tree. Returns (answers, summary numbers)."""
+    import contextlib
+    import io
+
+    from lecturemath_tpu_torch.cli import eval_summaries
+    from lecturemath_tpu_torch.core.config import Config
+    from lecturemath_tpu_torch.core.metadata import MetaDataDB
+    from lecturemath_tpu_torch.eval.summary_eval import SummaryEvaluator
+    from lecturemath_tpu_torch.ops.classical import METHOD_CHALKBOARD
+    from lecturemath_tpu_torch.utils import gt_editor
+
+    session = gt_editor.GTEditorSession(prefix)
+    kfs = session.keyframe_ids()
+
+    def drive(client):
+        client.get("/api/state")
+        client.post("/api/thr_grid", {"kf": kfs[0], "rows": 4, "cols": 4})
+        client.get(f"/api/thr_state/{kfs[0]}")
+        client.get(f"/img/thr_preview/{kfs[0]}.png")
+        for points, radius, erase in EDITORS_STROKES:
+            client.post("/api/stroke", {"kf": kfs[-1], "points": points,
+                                        "radius": radius, "erase": erase})
+        before = len(session.portions(kfs[0]))
+        for x, y, w, h, source, dark in EDITORS_PORTIONS:
+            client.post("/api/add_portion", {"kf": kfs[0], "x": x, "y": y,
+                                             "w": w, "h": h,
+                                             "source": source, "dark": dark})
+        client.post("/api/move_portion", {"kf": kfs[0], "index": before,
+                                          "dx": 12, "dy": -7})
+        client.post("/api/copy_portion", {"kf": kfs[0], "index": before + 1,
+                                          "direction": 1})
+        client.post("/api/reject_portion", {"kf": kfs[0], "index": 0})
+        client.get(f"/api/portions/{kfs[0]}")
+        client.post("/api/classical_apply", {"kf": kfs[1],
+                                             "method": METHOD_CHALKBOARD})
+        for kf in kfs:
+            client.get(f"/img/binary/{kf}.png")
+        client.get(f"/img/raw/{kfs[0]}.png")
+        client.post("/api/save", {})
+
+    answers = served(gt_editor, session, drive)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        eval_summaries.main(["eval_summaries", conf, "-l", "smoke01"])
+    if "Finished" not in printed.getvalue():
+        raise AssertionError("cli.eval_summaries did not finish")
+    config = Config.from_file(conf)
+    database = MetaDataDB.from_file(config.get_str("VIDEO_DATABASE_PATH"))
+    numbers = summary_numbers(SummaryEvaluator().evaluate_lecture(
+        config, database, database.get_lecture("smoke01")))
+    return answers, {key: list(pair) for key, pair in numbers.items()}
+
+
+def editors_words(prefix):
+    """The word annotator over the edited tree: keyframe 1's quad with one
+    corner moved, word trees auto-split, unique words matched, unique CCs
+    matched through a projection and directly, formulas, save; returns
+    (answers, whether a fresh editor's state equals the saved one)."""
+    import numpy as np
+
+    from lecturemath_tpu_torch.utils import word_editor
+
+    editor = word_editor.WordTierEditor(prefix)
+    count = len(editor.keyframes)
+    region = [0, 0, WIDTH, HEIGHT]
+    saved = []
+
+    def drive(client):
+        state = client.get("/api/state?tool=words")
+        quad = np.asarray(state["keyframes"][1]["src_points"])
+        quad[EDITORS_CORNER] += EDITORS_DELTA
+        client.post("/api/words/projection_quad",
+                    {"kf": 1, "points": quad.tolist()})
+        for kf in range(count):
+            x, y, w, h = client.get("/api/state?tool=words")[
+                "keyframes"][kf]["words"][0]
+            client.post("/api/words/auto_split",
+                        {"kf": kf, "x": x + w // 2, "y": y + h // 2,
+                         "normal": False})
+        client.post("/api/words/match", {"kf": 1, "region": region})
+        client.post("/api/words/accept", {"min_iou": 0.3})
+        client.get("/img/words/1?view=projected_bin")
+        client.post("/api/ccs/match", {"kf": 1, "source": 0,
+                                       "region": region,
+                                       "matrix": EDITORS_CC_MATRIX})
+        client.post("/api/ccs/accept", {"min_recall": 0.4,
+                                        "min_precision": 0.4})
+        if count > 2:
+            client.post("/api/ccs/match", {"kf": 2, "source": 1,
+                                           "region": region})
+            client.post("/api/ccs/accept", {})
+        client.post("/api/ccs/save", {})
+        client.post("/api/formulas/add", {"kf": 0, "region": region,
+                                          "latex": "x^2"})
+        client.post("/api/formulas/tag", {"index": 0,
+                                          "latex": r"\frac{a}{b}"})
+        for tool in ("words", "formulas"):
+            client.post(f"/api/{tool}/save", {})
+        saved.extend(client.get(f"/api/state?tool={tool}")
+                     for tool in ("words", "ccs", "formulas"))
+
+    answers = served(word_editor, editor, drive)
+    reopened = word_editor.WordTierEditor(prefix)
+    reloaded = [reopened.session(tool).state()
+                for tool in ("words", "ccs", "formulas")]
+    return answers, json.loads(json.dumps(reloaded)) == saved
+
+
+def editors_annotation(out, labelled):
+    """The annotation editor over the lecture's PNG image list: splits,
+    keyframes, a speaker with two keyposes, undo/redo, the frames without
+    objects (and, with ``labelled``, those with the labelled speaker), save;
+    returns (answers, whether a reopened session's state is the saved
+    one)."""
+    from lecturemath_tpu_torch.utils import annotation_editor
+
+    xml = os.path.join(out, "annotations", "SmokeDB_smoke01.xml")
+    session = annotation_editor.AnnotationEditorSession.open(
+        xml, "SmokeDB", "smoke01", [EDITORS_FRAMES])
+    state = []
+
+    def drive(client):
+        client.get("/api/state")
+        for frame in EDITORS_SPLITS:
+            client.post("/api/split", {"frame": frame})
+        for frame in EDITORS_MARKS:
+            client.post("/api/keyframe", {"frame": frame, "op": "add"})
+        (first, box), (last, moved) = EDITORS_SPEAKER
+        client.post("/api/object", {"op": "add", "name": "speaker",
+                                    "id": "spk", "shape_type": 0,
+                                    "frame": first, "points": box})
+        client.post("/api/pose", {"op": "set", "name": "speaker",
+                                  "frame": last, "points": moved})
+        client.get(f"/api/pose/speaker/{(first + last) // 2}")
+        client.post("/api/undo", {})
+        client.post("/api/redo", {})
+        for frame in EDITORS_PLAIN_FRAMES + (EDITORS_LABELLED_FRAMES
+                                             if labelled else ()):
+            client.get(f"/img/frame/{frame}.png")
+        client.post("/api/save", {})
+        state.append(client.get("/api/state"))
+
+    answers = served(annotation_editor, session, drive)
+    reopened = annotation_editor.AnnotationEditorSession.open(
+        xml, "SmokeDB", "smoke01", [EDITORS_FRAMES])
+    same = json.loads(json.dumps(reopened.state())) == state[0]
+    if state[0]["total_frames"] != N_FRAMES:
+        raise AssertionError(f"the image list holds "
+                             f"{state[0]['total_frames']} frames")
+    return answers, same
+
+
+def editors_st3d():
+    """The ST3D visualizer from phase 6's stage-02/03 artifacts, loaded as
+    its CLI loads them: every sample in binary mode, a few in the stable
+    and reconstructed modes, queries under ink pixels; returns (answers,
+    CC hits)."""
+    import numpy as np
+
+    from lecturemath_tpu_torch.pipeline.driver import PipelineDriver
+    from lecturemath_tpu_torch.utils import st3d_visualizer
+
+    keys = ["CC_STABILITY_OUTPUT", "CC_ST3D_OUTPUT",
+            "CC_RECONSTRUCTED_OUTPUT"]
+    driver = PipelineDriver.from_config_path(
+        os.path.join(WORKSPACE, "staged.conf"), ["-l", "smoke01"], keys,
+        None)
+    lecture = driver.database.get_lecture("smoke01")
+    session = st3d_visualizer.ST3DVisualizerSession.from_artifacts(
+        driver.store, lecture.id, *driver.input_prefixes,
+        lecture=lecture.title)
+    hits = []
+
+    def drive(client):
+        state = client.get("/api/state")
+        if state["n_samples"] != N_FRAMES or not state["has_reconstructed"]:
+            raise AssertionError(f"ST3D state: {state}")
+        for pos in range(state["n_samples"]):
+            client.get(f"/img/frame/{pos}.png?mode=binary")
+        for pos in EDITORS_ST3D_SAMPLES:
+            for mode in ("stable", "reconstructed"):
+                client.get(f"/img/frame/{pos}.png?mode={mode}")
+            ccs = session.tracker.cc_idx_per_frame[pos]
+            for _, cc in ccs[:EDITORS_QUERIES]:
+                ys, xs = np.nonzero(cc.img)
+                x, y = int(xs[0] + cc.min_x), int(ys[0] + cc.min_y)
+                result = client.get(f"/api/query?pos={pos}&x={x}&y={y}")
+                hits.append(result["cc"] is not None)
+
+    answers = served(st3d_visualizer, session, drive)
+    if not hits or not all(hits):
+        raise AssertionError(f"ST3D queries under ink found no CC: {hits}")
+    return answers, len(hits)
+
+
+def editors_run(labelled=False):
+    """Every editor's session over the inputs phase 13 saved; returns each
+    step's wall, result and answers' digest, the digest of every file
+    written and whether cv2 was importable."""
+    import hashlib
+    import importlib.util
+
+    import numpy as np
+
+    shutil.rmtree(EDITORS_OUT, ignore_errors=True)
+    os.makedirs(EDITORS_OUT)
+    with np.load(os.path.join(EDITORS_DIR, "inputs.npz")) as data:
+        inputs = dict(data)
+    walls, results, answers = {}, {}, {}
+    prefix, conf = editors_tree(EDITORS_OUT, inputs)
+    for name, step in (("gt editor + eval_summaries",
+                        lambda: editors_gt(prefix, conf)),
+                       ("word annotator", lambda: editors_words(prefix)),
+                       ("annotation editor",
+                        lambda: editors_annotation(EDITORS_OUT, labelled)),
+                       ("st3d visualizer", editors_st3d)):
+        t0 = time.perf_counter()
+        answers[name], results[name] = step()
+        walls[name] = time.perf_counter() - t0
+    digest, files = tree_digest(EDITORS_OUT)
+    return {"walls": walls, "results": results,
+            "answers": {name: hashlib.sha256(json.dumps(a).encode())
+                        .hexdigest() for name, a in answers.items()},
+            "requests": {name: len(a) for name, a in answers.items()},
+            "digest": digest, "files": files,
+            "cv2_importable": importlib.util.find_spec("cv2") is not None}
+
+
+def editors_child():
+    """Child (cv2, PIL and matplotlib blocked): editors_run's result."""
+    print(json.dumps(editors_run()), flush=True)
+    return 0
+
+
+def editors_cv2_parity():
+    """The port's drawing, Otsu, nearest warp and gray against the host's
+    cv2 on seeded cases; returns {primitive: (cases that differ, cases)}."""
+    import cv2
+    import numpy as np
+
+    from lecturemath_tpu_torch.utils import image
+
+    rng = np.random.default_rng(13)
+    counts = {}
+
+    def count(name, ours, theirs):
+        bad, seen = counts.get(name, (0, 0))
+        counts[name] = (bad + int(not np.array_equal(ours, theirs)),
+                        seen + 1)
+
+    for k in range(EDITORS_CASES):
+        height, width = (int(v) for v in rng.integers(8, 120, 2))
+        blank = np.zeros((height, width) + ((3,) if k % 2 else ()),
+                         np.uint8)
+        color = tuple(int(v) for v in rng.integers(1, 255, 3))
+        point = lambda m: (int(rng.integers(-m, width + m)),  # noqa: E731
+                           int(rng.integers(-m, height + m)))
+        center, radius = point(12), int(rng.integers(0, 11))
+        count("circle", image.circle(blank.copy(), center, radius, color),
+              cv2.circle(blank.copy(), center, radius, color, -1))
+        p0, p1, thickness = point(20), point(20), int(rng.integers(2, 9))
+        count("line t2-8", image.line(blank.copy(), p0, p1, color, thickness),
+              cv2.line(blank.copy(), p0, p1, color, thickness))
+        gray = rng.integers(0, 256, (height, width), dtype=np.uint8)
+        if k % 3 == 1:
+            gray = np.where(gray < 80, rng.integers(0, 120),
+                            rng.integers(120, 256)).astype(np.uint8)
+        count("threshold_otsu", image.threshold_otsu(gray), cv2.threshold(
+            gray, 0, 255, cv2.THRESH_BINARY + cv2.THRESH_OTSU)[0])
+        corners = np.float32([[0, 0], [width, 0], [width, height],
+                              [0, height]])
+        H = cv2.getPerspectiveTransform(corners, corners + np.float32(
+            rng.normal(0, 0.3, (4, 2)) * [width, height])).astype(np.float64)
+        size = (int(rng.integers(8, 140)), int(rng.integers(8, 140)))
+        for dtype in (np.int32, np.uint8):
+            labels = rng.integers(0, 200, (height, width)).astype(dtype)
+            count(f"warp nearest {np.dtype(dtype).name}",
+                  image.warp_perspective(labels, H, size,
+                                         interpolation="nearest"),
+                  cv2.warpPerspective(labels, H, size,
+                                      flags=cv2.INTER_NEAREST))
+        rgb = rng.integers(0, 256, (height, width, 3), dtype=np.uint8)
+        count("rgb_to_gray", image.rgb_to_gray(rgb),
+              cv2.cvtColor(rgb, cv2.COLOR_RGB2GRAY))
+    return counts
+
+
+def phase_editors(counters, summary, card):
+    """Phase 13: the four editors over phase 4's summary, the lecture as
+    PNGs and phase 6's artifacts, cv2-free (blocked child, then here, the
+    same files and answers), then the labelled overlays and the drawing
+    held against OpenCV where it is installed; returns (launch counts,
+    numbers)."""
+    import importlib.util
+
+    import numpy as np
+
+    from lecturemath_tpu_torch.utils.png import write_image
+
+    for fn in counters.values():
+        fn.launches = 0
+    t_phase = time.perf_counter()
+    walls = {}
+    t0 = time.perf_counter()
+    shutil.rmtree(EDITORS_DIR, ignore_errors=True)
+    os.makedirs(EDITORS_FRAMES)
+    source = make_source()
+    for t in range(N_FRAMES):
+        write_image(os.path.join(EDITORS_FRAMES, f"{t:04d}.png"),
+                    source.rgb_frame(t)[:, :, ::-1])
+    np.savez(os.path.join(EDITORS_DIR, "inputs.npz"),
+             indices=np.asarray(summary["indices"]),
+             times=np.asarray(summary["times"]),
+             keyframes=np.stack(summary["keyframes"]),
+             raw=np.stack([source.rgb_frame(int(t))
+                           for t in summary["indices"]]))
+    walls["image list + inputs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blocked, = child_results([start_child("editors_child()",
+                                          block=EDITORS_BLOCK)],
+                             "editors, cv2 blocked")
+    walls["blocked child"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    allowed = editors_run()
+    walls["here"] = time.perf_counter() - t0
+    if blocked["cv2_importable"]:
+        raise AssertionError("cv2 was importable in the blocked child")
+    same = {key: blocked[key] == json.loads(json.dumps(allowed[key]))
+            for key in ("digest", "files", "answers", "results")}
+    log(f"editors, cv2-free over the express keyframes "
+        f"({len(summary['indices'])} at {WIDTH}x{HEIGHT}), the {N_FRAMES}-"
+        f"frame PNG image list and the stage-02/03 artifacts: requests "
+        f"{json.dumps(allowed['requests'])}; walls s "
+        f"{json.dumps({k: round(v, 3) for k, v in allowed['walls'].items()})}"
+        f" here, "
+        f"{json.dumps({k: round(v, 3) for k, v in blocked['walls'].items()})}"
+        f" in the blocked child; {allowed['files']} files, sha256 "
+        f"{allowed['digest'][:16]} here, {blocked['digest'][:16]} blocked; "
+        f"equal (files, answers, results): {same}")
+    gt_numbers = allowed["results"]["gt editor + eval_summaries"]
+    log(f"  cli.eval_summaries, express summary against the edited tree "
+        f"(recall, precision by min R/P): {json.dumps(gt_numbers)}")
+    if not all(same.values()):
+        raise AssertionError("the editors' output with cv2 blocked differs "
+                             "from their output with cv2 allowed")
+    for name in ("word annotator", "annotation editor"):
+        if not allowed["results"][name]:
+            raise AssertionError(f"{name}: the reloaded state differs from "
+                                 f"the saved one")
+    numbers = {"walls": walls, "steps": allowed["walls"],
+               "blocked_steps": blocked["walls"], "files": allowed["files"],
+               "requests": allowed["requests"]}
+    if importlib.util.find_spec("cv2") is None:
+        log("editors, labelled overlays and cv2 parity: did not run (cv2 "
+            "is not installed)")
+    else:
+        import cv2
+
+        t0 = time.perf_counter()
+        labelled_out = os.path.join(EDITORS_DIR, "labelled")
+        os.makedirs(labelled_out)
+        editors_annotation(labelled_out, labelled=True)
+        walls["labelled frames (cv2)"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        parity = editors_cv2_parity()
+        walls["cv2 parity"] = time.perf_counter() - t0
+        log(f"editors with OpenCV {cv2.__version__}: "
+            f"{len(EDITORS_LABELLED_FRAMES)} labelled frames served; cases "
+            f"that differ from cv2 (differ, cases): {json.dumps(parity)}")
+        numbers["cv2_parity"] = parity
+        exact = [key for key in parity if not key.startswith(
+            ("warp", "rgb_to_gray"))]
+        if any(parity[key][0] for key in exact):
+            raise AssertionError(f"the port's drawing or Otsu differs from "
+                                 f"cv2 {cv2.__version__}: {parity}")
+    launches = counted(counters)
+    walls["phase"] = time.perf_counter() - t_phase
+    log(f"editors phase walls s "
+        f"{json.dumps({k: round(v, 3) for k, v in walls.items()})}; "
+        f"launches {launches}; {card}")
+    if any(launches.values()):
+        raise AssertionError(f"the editors launched a kernel: {launches}")
+    return launches, numbers
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "lecturemath_tpu_torch")):
         print("chip_smoke.py: lecturemath_tpu_torch not found beside this "
@@ -4127,6 +4674,8 @@ def main():
     worker = {}
     tooling_launches = {}
     tooling = {}
+    editors_launches = {}
+    editors = {}
     try:
         conf, _ = make_workspace()
         try:
@@ -4183,6 +4732,12 @@ def main():
         except Exception:  # noqa: BLE001 — report every phase, then fail
             traceback.print_exc()
             failures.append("tooling")
+        try:
+            editors_launches, editors = phase_editors(counters, summary,
+                                                      card)
+        except Exception:  # noqa: BLE001 — report every phase, then fail
+            traceback.print_exc()
+            failures.append("editors")
     except Exception:  # noqa: BLE001 — report every phase, then fail
         traceback.print_exc()
         failures.append("workspace")
@@ -4205,7 +4760,8 @@ def main():
                 "evaluation": evaluation_launches.get(name, 0),
                 "scale_out": scale_launches.get(name, 0),
                 "device_worker": worker_launches.get(name, 0),
-                "tooling": tooling_launches.get(name, 0)}
+                "tooling": tooling_launches.get(name, 0),
+                "editors": editors_launches.get(name, 0)}
     for key in SERVING_KERNELS:
         if key in records and serving:
             device_us = {bucket: numbers["device_us"]
@@ -4235,6 +4791,8 @@ def main():
         log(f"device worker and device ops on {card}: " + json.dumps(worker))
     if tooling:
         log(f"tooling on the card's host, {card}: " + json.dumps(tooling))
+    if editors:
+        log(f"editors on the card's host, {card}: " + json.dumps(editors))
     log(f"express {summary.get('fps', 0):.2f} fps on {card}")
     log(card)
     log(json.dumps({"kernels": list(records.values())}))

@@ -184,18 +184,24 @@ def main(argv=None):
           f"keyframe PNG(s): {', '.join(keyframes)}")
     print()
     print("Next steps:")
-    print(f"  staged run:  python -m lecturemath_tpu_torch.cli.binarize "
-          f"{conf_path}   (then cc_analysis, cc_grouping, "
-          f"vid_segmentation, generate_summary)")
-    print("  (the tools below are the JAX package's; not ported yet)")
-    print(f"  GT editing:  python -m lecturemath_tpu.cli.gt_editor "
-          f"{conf_path} -l demo01 -port 8080")
-    print(f"  evaluation:  python -m lecturemath_tpu.cli.eval_summaries "
-          f"{conf_path}   (needs a GT tree; see README 'Creating "
-          f"ground truth')")
-    print("  real models: point BINARIZATION_FCN_LECTURENET_DIR/FILENAME "
-          "at a reference torch checkpoint (loads directly) and raise "
-          "the FCN_BINARIZER_NET_* widths (see MIGRATION.md)")
+    for line in next_steps(conf_path):
+        print(line)
+
+
+def next_steps(conf_path: str):
+    """The lines the quickstart prints under "Next steps"."""
+    return [
+        f"  staged run:  python -m lecturemath_tpu_torch.cli.binarize "
+        f"{conf_path}   (then cc_analysis, cc_grouping, "
+        f"vid_segmentation, generate_summary)",
+        f"  GT editing:  python -m lecturemath_tpu_torch.cli.gt_editor "
+        f"{conf_path} -l demo01 -port 8080",
+        f"  evaluation:  python -m lecturemath_tpu_torch.cli.eval_summaries "
+        f"{conf_path}   (needs a GT tree; see README 'Creating "
+        f"ground truth')",
+        "  real models: point BINARIZATION_FCN_LECTURENET_DIR/FILENAME "
+        "at a reference torch checkpoint (loads directly) and raise "
+        "the FCN_BINARIZER_NET_* widths (see MIGRATION.md)"]
 
 
 if __name__ == "__main__":

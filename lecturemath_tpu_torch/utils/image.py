@@ -20,7 +20,15 @@ Each function reproduces one library call's arithmetic:
   * ``find_homography``, ``perspective_transform`` and ``warp_perspective``:
     ``cv2.findHomography`` (method 0, 4 points), ``cv2.perspectiveTransform``
     and ``cv2.warpPerspective`` (INTER_LINEAR, BORDER_CONSTANT on uint8), the
-    last in OpenCV 5.0's float32 arithmetic.
+    last in OpenCV 5.0's float32 arithmetic, or with
+    ``interpolation="nearest"`` as ``cv2.INTER_NEAREST`` warps any integer
+    image;
+  * ``line``, ``polylines``, ``rectangle`` and ``circle``: OpenCV's
+    ``LINE_8`` drawing with ``shift=0`` (a thick line is a quad in 16-bit
+    fixed point through OpenCV's convex fill, with round caps; the filled
+    circle is its integer ``Circle``);
+  * ``threshold_otsu``: the threshold ``cv2.threshold(..., THRESH_OTSU)``
+    returns.
 
 Images are uint8 [H, W] or [H, W, C]; sizes are (width, height) as for cv2.
 The coefficient tables are built once for each (source, destination) size
@@ -41,7 +49,8 @@ __all__ = ["resize_nearest", "resize_area", "resize_linear", "halve_lanczos",
            "rgb_to_yuv420", "rgb_to_gray", "rgb_to_hsv", "hsv_to_rgb",
            "ellipse_kernel", "erode", "dilate", "morph_close", "morph_open",
            "median_blur", "fill_poly", "find_homography",
-           "perspective_transform", "warp_perspective"]
+           "perspective_transform", "warp_perspective", "threshold_otsu",
+           "line", "polylines", "rectangle", "circle"]
 
 
 def _check(img: np.ndarray, size: Tuple[int, int]) -> Tuple[int, int]:
@@ -208,14 +217,12 @@ def _linear_table(src: int, dst: int, clamp: bool):
 
 
 def resize_linear(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
-    """``cv2.resize(img, size, interpolation=cv2.INTER_LINEAR)`` for an
-    upscale or a copy (no factor below 1), in OpenCV's 11-bit fixed point."""
+    """``cv2.resize(img, size, interpolation=cv2.INTER_LINEAR)`` by any
+    factor along either axis, in OpenCV's 11-bit fixed point (its 2x
+    halving by INTER_AREA averages the same four pixels)."""
     img = np.asarray(img)
     width, height = _check(img, size)
     src_h, src_w = img.shape[:2]
-    if width < src_w or height < src_h:
-        raise ValueError(f"resize_linear takes upscales only, got "
-                         f"{src_w}x{src_h} to {width}x{height}")
     if (width, height) == (src_w, src_h):
         return img.copy()
     return _fixed_point_linear(img, _linear_table(src_w, width, True),
@@ -736,6 +743,265 @@ def fill_poly(img: np.ndarray, pts: np.ndarray, color=255) -> np.ndarray:
     return img
 
 
+# ----------------------------------------------------------------- drawing
+
+_XY_ONE = 1 << _XY_SHIFT
+
+
+def _color_value(img: np.ndarray, color):
+    """OpenCV's ``scalarToRawData``: one value for each channel, the
+    scalar's missing channels 0, each rounded half to even and saturated
+    to the image's integer type."""
+    channels = img.shape[2] if img.ndim == 3 else 1
+    values = np.zeros(channels, np.float64)
+    given = np.atleast_1d(np.asarray(color, np.float64)).ravel()[:channels]
+    values[:len(given)] = given
+    if img.dtype.kind in "iu":
+        info = np.iinfo(img.dtype)
+        values = np.clip(np.rint(values), info.min, info.max)
+    values = values.astype(img.dtype)
+    return values if img.ndim == 3 else values[0]
+
+
+def _fill_circle(img: np.ndarray, cx: int, cy: int, radius: int,
+                 color) -> None:
+    """OpenCV's integer ``Circle`` with ``fill``: Bresenham's octant walk,
+    a row span for each of its four mirrored rows a step, clipped."""
+    height, width = img.shape[:2]
+    err, dx, dy, plus, minus = 0, radius, 0, 1, (radius << 1) - 1
+    spans = []
+    while dx >= dy:
+        spans += [(cy - dy, cx - dx, cx + dx), (cy + dy, cx - dx, cx + dx),
+                  (cy - dx, cx - dy, cx + dy), (cy + dx, cx - dy, cx + dy)]
+        dy += 1
+        err += plus
+        plus += 2
+        mask = (err <= 0) - 1
+        err -= minus & mask
+        dx += mask
+        minus -= mask & 2
+    for y, x0, x1 in spans:
+        if 0 <= y < height and x1 >= 0 and x0 < width:
+            img[y, max(x0, 0):min(x1, width - 1) + 1] = color
+
+
+def _div_trunc(a: int, b: int) -> int:
+    """C's integer division, truncating toward zero."""
+    q = abs(a) // abs(b)
+    return q if (a < 0) == (b < 0) else -q
+
+
+def _line_fixed(img: np.ndarray, x1: int, y1: int, x2: int, y2: int,
+                color) -> None:
+    """OpenCV's ``Line2``: an 8-connected line between points in 16-bit
+    fixed point, clipped to the image there, one pixel a step along the
+    major axis with the minor coordinate advanced by a truncated fixed
+    step, plus the rounded end point."""
+    height, width = img.shape[:2]
+    inside, x1, y1, x2, y2 = _clip_line(width << _XY_SHIFT,
+                                        height << _XY_SHIFT, x1, y1, x2, y2)
+    if not inside:
+        return
+    x_major = abs(x2 - x1) > abs(y2 - y1)
+    if (x2 < x1) if x_major else (y2 < y1):
+        x1, y1, x2, y2 = x2, y2, x1, y1
+    half = _XY_ONE >> 1
+    if x_major:
+        step = _div_trunc((y2 - y1) << _XY_SHIFT, (x2 - x1) | 1)
+        count = (x2 - x1) >> _XY_SHIFT
+    else:
+        step = _div_trunc((x2 - x1) << _XY_SHIFT, (y2 - y1) | 1)
+        count = (y2 - y1) >> _XY_SHIFT
+    k = np.arange(count + 1, dtype=np.int64)
+    if x_major:
+        xs = ((x1 + half) >> _XY_SHIFT) + k
+        ys = (y1 + half + k * step) >> _XY_SHIFT
+    else:
+        xs = (x1 + half + k * step) >> _XY_SHIFT
+        ys = ((y1 + half) >> _XY_SHIFT) + k
+    xs = np.append(xs, (x2 + half) >> _XY_SHIFT)
+    ys = np.append(ys, (y2 + half) >> _XY_SHIFT)
+    keep = (xs >= 0) & (xs < width) & (ys >= 0) & (ys < height)
+    img[ys[keep], xs[keep]] = color
+
+
+def _fill_convex_fixed(img: np.ndarray, pts, color) -> None:
+    """OpenCV's ``FillConvexPoly`` with ``shift=16`` and ``LINE_8``: the
+    outline by ``_line_fixed``, then one span a row between a left and a
+    right edge walked down from the topmost vertex, each edge's x stepped
+    by its rounded fixed-point slope from the row it starts on."""
+    height, width = img.shape[:2]
+    count = len(pts)
+    half = _XY_ONE >> 1
+    x0, y0 = pts[-1]
+    for x1, y1 in pts:
+        _line_fixed(img, x0, y0, x1, y1, color)
+        x0, y0 = x1, y1
+    xs = [p[0] for p in pts]
+    ys = [p[1] for p in pts]
+    top = ys.index(min(ys))
+    y_min = (min(ys) + half) >> _XY_SHIFT
+    y_max = (max(ys) + half) >> _XY_SHIFT
+    if (count < 3 or (max(xs) + half) >> _XY_SHIFT < 0 or y_max < 0
+            or (min(xs) + half) >> _XY_SHIFT >= width or y_min >= height):
+        return
+    y_max = min(y_max, height - 1)
+    # each edge: [vertex index, index step, x, x step, row it ends on]
+    edges = [[top, 1, -_XY_ONE, 0, y_min], [top, count - 1, -_XY_ONE, 0, y_min]]
+    left = count
+    y = y_min
+    while True:
+        for edge in edges:
+            if y < edge[4]:
+                continue
+            start, di = edge[0], edge[1]
+            idx = (start + di) % count
+            while left > 0:
+                left -= 1
+                end_y = (ys[idx] + half) >> _XY_SHIFT
+                if end_y > y:
+                    edge[:] = [idx, di, xs[start], _div_trunc(
+                        (xs[idx] - xs[start]) * 2 + (end_y - y),
+                        2 * (end_y - y)), end_y]
+                    break
+                start, idx = idx, (idx + di) % count
+            else:
+                left -= 1
+        if left < 0:
+            break
+        if y >= 0:
+            a, b = sorted((edges[0][2], edges[1][2]))
+            x_left, x_right = (a + half) >> _XY_SHIFT, (b + half) >> _XY_SHIFT
+            if x_right >= 0 and x_left < width:
+                img[y, max(x_left, 0):min(x_right, width - 1) + 1] = color
+        edges[0][2] += edges[0][3]
+        edges[1][2] += edges[1][3]
+        y += 1
+        if y > y_max:
+            break
+
+
+def _thick_line(img: np.ndarray, p0, p1, color, thickness: int,
+                caps: int) -> None:
+    """OpenCV's ``ThickLine`` for integer points and ``LINE_8``: thickness
+    1 is the 8-connected ``_line``; a thicker line is first clipped to the
+    image grown by the thickness on every side, then drawn as the quad of
+    its two ends offset by half the thickness across it (in fixed point,
+    rounded), with a filled circle of radius (thickness + 1) // 2 at the
+    ends that ``caps`` names (bit 0 the first, bit 1 the second)."""
+    x0, y0 = int(p0[0]), int(p0[1])
+    x1, y1 = int(p1[0]), int(p1[1])
+    if thickness <= 1:
+        _line(img, x0, y0, x1, y1, color)
+        return
+    height, width = img.shape[:2]
+    inside, x0, y0, x1, y1 = _clip_line(
+        width + 2 * thickness, height + 2 * thickness, x0 + thickness,
+        y0 + thickness, x1 + thickness, y1 + thickness)
+    if not inside:
+        return
+    x0, y0, x1, y1 = (v - thickness for v in (x0, y0, x1, y1))
+    fx0, fy0, fx1, fy1 = (v << _XY_SHIFT for v in (x0, y0, x1, y1))
+    dx = (fx0 - fx1) / _XY_ONE
+    dy = (fy1 - fy0) / _XY_ONE
+    r = dx * dx + dy * dy
+    half_width = thickness << (_XY_SHIFT - 1)
+    if abs(r) > _DBL_EPSILON:
+        r = (half_width + (thickness & 1) * _XY_ONE * 0.5) / math.sqrt(r)
+        ox, oy = round(dy * r), round(dx * r)
+        _fill_convex_fixed(img, [(fx0 + ox, fy0 + oy), (fx0 - ox, fy0 - oy),
+                                 (fx1 - ox, fy1 - oy), (fx1 + ox, fy1 + oy)],
+                           color)
+    radius = (half_width + (_XY_ONE >> 1)) >> _XY_SHIFT
+    for bit, (cx, cy) in ((1, (x0, y0)), (2, (x1, y1))):
+        if caps & bit:
+            _fill_circle(img, cx, cy, radius, color)
+
+
+def line(img: np.ndarray, p0, p1, color, thickness: int = 1) -> np.ndarray:
+    """``cv2.line(img, p0, p1, color, thickness)`` (``LINE_8``, integer
+    points) on an [H, W] or [H, W, C] image of any integer type, in place;
+    returns img. Both ends get their round cap."""
+    _thick_line(img, p0, p1, _color_value(img, color), int(thickness), 3)
+    return img
+
+
+def polylines(img: np.ndarray, polygons, closed: bool, color,
+              thickness: int = 1) -> np.ndarray:
+    """``cv2.polylines(img, polygons, closed, color, thickness)``: each
+    polygon's points ([N, 2] or [N, 1, 2]) joined by ``line``'s segments,
+    the last back to the first where ``closed``. A segment caps its end
+    only, and an open polyline's first segment its start too, as OpenCV's
+    ``PolyLine`` does."""
+    value = _color_value(img, color)
+    for points in polygons:
+        points = np.asarray(points).reshape(-1, 2).astype(np.int64)
+        if not len(points):
+            continue
+        start = points[-1] if closed else points[0]
+        caps = 2 if closed else 3
+        for point in points[0 if closed else 1:]:
+            _thick_line(img, start, point, value, int(thickness), caps)
+            start, caps = point, 2
+    return img
+
+
+def rectangle(img: np.ndarray, p0, p1, color,
+              thickness: int = 1) -> np.ndarray:
+    """``cv2.rectangle(img, p0, p1, color, thickness)`` for thickness >= 1:
+    the closed polyline through the four corners from p0."""
+    (x0, y0), (x1, y1) = p0, p1
+    return polylines(img, [[(x0, y0), (x1, y0), (x1, y1), (x0, y1)]], True,
+                     color, thickness)
+
+
+def circle(img: np.ndarray, center, radius: int, color,
+           thickness: int = -1) -> np.ndarray:
+    """``cv2.circle(img, center, radius, color, -1)``: the filled circle of
+    OpenCV's integer ``Circle`` (``LINE_8``, ``shift=0``), clipped. Only
+    the filled form is provided."""
+    if thickness >= 0:
+        raise ValueError(f"circle draws filled circles only (thickness < "
+                         f"0), got thickness {thickness}")
+    if radius < 0:
+        raise ValueError(f"circle radius must be >= 0, got {radius}")
+    _fill_circle(img, int(center[0]), int(center[1]), int(radius),
+                 _color_value(img, color))
+    return img
+
+
+def threshold_otsu(gray: np.ndarray) -> float:
+    """The threshold ``cv2.threshold(gray, 0, 255, cv2.THRESH_BINARY |
+    cv2.THRESH_OTSU)`` returns for a uint8 image (any strides): OpenCV's
+    ``getThreshVal_Otsu`` over the 256-bin histogram, in double, the first
+    level of the largest between-class variance; 0 for a flat image."""
+    gray = np.asarray(gray)
+    if gray.dtype != np.uint8 or gray.size == 0:
+        raise ValueError(f"threshold_otsu takes a non-empty uint8 image, "
+                         f"got {gray.dtype} {gray.shape}")
+    hist = np.bincount(gray.ravel(), minlength=256).tolist()
+    scale = 1.0 / gray.size
+    mu = 0.0
+    for level, count in enumerate(hist):
+        mu += level * float(count)
+    mu *= scale
+    mu1 = q1 = max_sigma = 0.0
+    best = 0
+    for level, count in enumerate(hist):
+        p = count * scale
+        mu1 *= q1
+        q1 += p
+        q2 = 1.0 - q1
+        if min(q1, q2) < _FLT_EPSILON or max(q1, q2) > 1.0 - _FLT_EPSILON:
+            continue
+        mu1 = (mu1 + level * p) / q1
+        mu2 = (mu - q1 * mu1) / q2
+        sigma = q1 * q2 * (mu1 - mu2) * (mu1 - mu2)
+        if sigma > max_sigma:
+            max_sigma, best = sigma, level
+    return float(best)
+
+
 # -------------------------------------------------------------- homography
 
 # the spread under which OpenCV's homography kernel gives up (DBL_EPSILON),
@@ -849,15 +1115,24 @@ def _warp_coords(m: np.ndarray, width: int, height: int):
 
 
 def warp_perspective(img: np.ndarray, H: np.ndarray, size: Tuple[int, int],
-                     border_value=0) -> np.ndarray:
+                     border_value=0, interpolation: str = "linear"
+                     ) -> np.ndarray:
     """``cv2.warpPerspective(img, H, size, borderValue=border_value)``
     (INTER_LINEAR, BORDER_CONSTANT) of a uint8 [H, W] or [H, W, C] image,
     as OpenCV 5.0 (and 4.11 on) warps one: H inverted by ``cv::invert``,
     the map in float32, each destination pixel's source point by
     ``_warp_coords``, its floor and fraction, the four neighbours (the
     border value off the image) blended by fused steps along x, then y,
-    and rounded half to even. Bit for bit with OpenCV's x86 AVX2 build."""
+    and rounded half to even. Bit for bit with OpenCV's x86 AVX2 build.
+
+    With ``interpolation="nearest"`` it is ``cv2.INTER_NEAREST`` on an
+    integer image of any type (``_warp_nearest``)."""
     img = np.asarray(img)
+    if interpolation == "nearest":
+        return _warp_nearest(img, H, size, border_value)
+    if interpolation != "linear":
+        raise ValueError(f"interpolation must be 'linear' or 'nearest', got "
+                         f"{interpolation!r}")
     if img.dtype != np.uint8 or img.ndim not in (2, 3):
         raise ValueError(f"expected a uint8 [H, W] or [H, W, C] image, got "
                          f"{img.dtype} {img.shape}")
@@ -887,3 +1162,66 @@ def warp_perspective(img: np.ndarray, H: np.ndarray, size: Tuple[int, int],
     bottom = _fma(ax, p11 - p10, p10)
     value = _fma(ay, bottom - top, top)
     return np.clip(np.rint(value), 0, 255).astype(np.uint8).reshape(out_shape)
+
+
+# the block OpenCV's warp maps at a time (BLOCK_SZ = 32: 16 rows of 64)
+_WARP_BLOCK = 32
+_INT_MIN, _INT_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def _nearest_coords_double(m: np.ndarray, width: int, height: int):
+    """Source pixel of every destination pixel as OpenCV's generic warp
+    finds it: for each block of the map, the row's numerators and weight
+    at the block's first column in double, plus the matrix column times
+    the offset in the block; the weight's reciprocal (0 for a weight of 0)
+    times each numerator, clamped to int and rounded half to even
+    (``saturate_cast<int>``), then saturated to short."""
+    m = m.reshape(9)
+    rows = min(_WARP_BLOCK // 2, height)
+    cols = min(_WARP_BLOCK * _WARP_BLOCK // rows, width)
+    xs = np.arange(width)
+    first = (xs // cols * cols).astype(np.float64)[None, :]
+    offset = (xs % cols).astype(np.float64)[None, :]
+    ys = np.arange(height, dtype=np.float64)[:, None]
+    x0 = m[0] * first + m[1] * ys + m[2]
+    y0 = m[3] * first + m[4] * ys + m[5]
+    w = m[6] * first + m[7] * ys + m[8] + m[6] * offset
+    live = w != 0
+    w = np.divide(1.0, w, out=np.zeros_like(w), where=live)
+    out = []
+    for numerator, column in ((x0, m[0]), (y0, m[3])):
+        value = np.clip((numerator + column * offset) * w, _INT_MIN, _INT_MAX)
+        out.append(np.clip(np.rint(value), -32768, 32767).astype(np.int64))
+    return out
+
+
+def _warp_nearest(img: np.ndarray, H: np.ndarray, size: Tuple[int, int],
+                  border_value=0) -> np.ndarray:
+    """``cv2.warpPerspective(img, H, size, flags=cv2.INTER_NEAREST,
+    borderValue=border_value)`` (BORDER_CONSTANT) of an integer [H, W] or
+    [H, W, C] image. OpenCV 5.0 maps uint8 and uint16 images by its float
+    warp: ``_warp_coords`` rounded half to even. Every other type goes
+    through its generic map (``_nearest_coords_double``). A destination
+    pixel whose source pixel lies off the image takes the border value."""
+    if img.dtype.kind not in "iu" or img.ndim not in (2, 3):
+        raise ValueError(f"expected an integer [H, W] or [H, W, C] image, "
+                         f"got {img.dtype} {img.shape}")
+    width, height = (int(v) for v in size)
+    src_h, src_w = img.shape[:2]
+    out = np.empty((max(height, 0), max(width, 0)) + img.shape[2:], img.dtype)
+    out[...] = _color_value(img, border_value)
+    if width <= 0 or height <= 0:
+        return out
+    m = _invert3(np.asarray(H, np.float64).reshape(3, 3))
+    if img.dtype in (np.uint8, np.uint16):
+        sx, sy = _warp_coords(m.astype(np.float32), width, height)
+        with np.errstate(invalid="ignore"):
+            sx, sy = np.rint(sx), np.rint(sy)
+            keep = (sx >= 0) & (sx < src_w) & (sy >= 0) & (sy < src_h)
+        sx = np.where(keep, sx, 0).astype(np.int64)
+        sy = np.where(keep, sy, 0).astype(np.int64)
+    else:
+        sx, sy = _nearest_coords_double(m, width, height)
+        keep = (sx >= 0) & (sx < src_w) & (sy >= 0) & (sy < src_h)
+    out[keep] = img[sy[keep], sx[keep]]
+    return out

@@ -125,3 +125,17 @@ def signal_plot(signals: Dict[str, np.ndarray], out_path: str,
     fig.savefig(out_path)
     plt.close(fig)
     return out_path
+
+
+def put_label(img: np.ndarray, text: str, origin, scale: float,
+              color) -> bool:
+    """``cv2.putText(img, text, origin, cv2.FONT_HERSHEY_PLAIN, scale,
+    color, 1)`` where OpenCV is installed. The Hershey font has no port, so
+    without OpenCV the label is left out of the (preview) image. Returns
+    whether it was drawn."""
+    try:
+        import cv2
+    except ImportError:
+        return False
+    cv2.putText(img, text, origin, cv2.FONT_HERSHEY_PLAIN, scale, color, 1)
+    return True

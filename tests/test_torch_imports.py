@@ -211,6 +211,109 @@ def test_tooling_modules_are_checked(module):
     assert module in [_module_name(p) for p in _port_files()]
 
 
+EDITOR_MODULES = [
+    *[f"lecturemath_tpu_torch.utils.{name}" for name in (
+        "gt_editor", "word_editor", "annotation_editor", "st3d_visualizer")],
+    *[f"lecturemath_tpu_torch.cli.{name}" for name in (
+        "gt_editor", "word_annotator", "annotation_editor",
+        "st3d_visualizer")],
+]
+
+
+@pytest.mark.parametrize("module", EDITOR_MODULES)
+def test_editor_modules_are_checked(module):
+    """The four browser editors and their CLIs are among the files the
+    checks above walk."""
+    assert module in [_module_name(p) for p in _port_files()]
+
+
+# the functions of the editors' path that may still import OpenCV: the
+# bilateral smoothing (sigma_color > 0), the video capture, and the labels'
+# Hershey font
+EDITOR_CV2_FUNCTIONS = {
+    "utils/gt_editor.py": {"gray"},
+    "utils/annotation_editor.py": {"_probe_videos", "_file_counts",
+                                   "_decode_count", "_video_frame"},
+    "utils/word_editor.py": set(),
+    "utils/st3d_visualizer.py": set(),
+    "utils/visualizer.py": {"put_label", "signal_plot"},
+}
+
+
+@pytest.mark.parametrize("rel", sorted(EDITOR_CV2_FUNCTIONS))
+def test_editors_import_opencv_only_where_named(rel):
+    """cv2, PIL and matplotlib are imported by the editors' modules only
+    inside the functions that still need them, never at module level or
+    in a server or handler."""
+    path = os.path.join(REPO, PACKAGE, rel)
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    found = set()
+
+    def walk(node, function):
+        for child in ast.iter_child_nodes(node):
+            name = (child.name if isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef)) else function)
+            if isinstance(child, (ast.Import, ast.ImportFrom)):
+                modules = ([a.name for a in child.names]
+                           if isinstance(child, ast.Import)
+                           else [child.module or ""])
+                if any(m.split(".")[0] in ("cv2", "PIL", "matplotlib")
+                       for m in modules):
+                    found.add(function)
+            walk(child, name)
+
+    walk(tree, None)
+    assert found <= EDITOR_CV2_FUNCTIONS[rel], found
+
+
+def test_the_port_has_every_jax_module_but_the_pallas_kernels():
+    """Every .py file of the JAX package has its counterpart in the port,
+    except the two Pallas kernel files (ported as ops/conv7.py and
+    ops/postprocess.py around their CUDA kernels)."""
+    def files(package):
+        root = os.path.join(REPO, package)
+        return {os.path.relpath(os.path.join(base, name), root)
+                for base, _, names in os.walk(root) for name in names
+                if name.endswith(".py")}
+
+    missing = files("lecturemath_tpu") - files(PACKAGE)
+    assert missing == {os.path.join("ops", "pallas_conv7.py"),
+                       os.path.join("ops", "pallas_postprocess.py")}
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_command_names_a_jax_module(path):
+    """No string of the port tells its user to run a module of the JAX
+    package (``python -m lecturemath_tpu.<...>``), which the card's machine
+    cannot run."""
+    import re
+
+    with open(path) as f:
+        text = f.read()
+    assert not re.findall(r"python3? -m lecturemath_tpu\.", text)
+
+
+def test_quickstart_next_steps_name_the_port():
+    """The "Next steps" the quickstart prints name only the port's
+    modules, the GT editor and eval_summaries among them, and each of them
+    exists."""
+    import importlib.util
+    import re
+
+    from lecturemath_tpu_torch.cli.quickstart import next_steps
+
+    lines = next_steps("demo.conf")
+    modules = [m for line in lines
+               for m in re.findall(r"python3? -m ([\w.]+)", line)]
+    assert modules == ["lecturemath_tpu_torch.cli.binarize",
+                       "lecturemath_tpu_torch.cli.gt_editor",
+                       "lecturemath_tpu_torch.cli.eval_summaries"]
+    assert all(importlib.util.find_spec(m) is not None for m in modules)
+    assert all("demo.conf" in line for line in lines[:3])
+
+
 def test_ops_package_exports_the_jax_names():
     """``lecturemath_tpu_torch.ops`` exports every name the JAX package's
     ``ops/__init__.py`` imports (read from its source, not imported)."""
