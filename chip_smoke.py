@@ -8,8 +8,10 @@ then, in phases:
   1. environment: the card's name and power limit, torch and CUDA versions,
      the kernels' build time and ptxas' registers and spills per kernel;
   2. kernel K1 (threshold_pack) against its plain PyTorch version at the
-     main path's shape [B, 544, 960] and at odd shapes, with logits placed on
-     the threshold; kernel and plain times beside the bytes bound;
+     main path's shape [B, 544, 960], at the full-lecture drive's 1080p
+     stage-01 shape [B, 1088, 1920] (cropped to 1080x1920) and at odd
+     shapes, with logits placed on the threshold; kernel and plain times
+     beside the bytes bound;
   3. kernel K2 (conv_same_nhwc, an implicit GEMM on the tensor cores)
      against its plain version (torch.cat + F.conv2d in f32, TF32 off) at
      the four head-conv shapes of the main path, in the two-input form the
@@ -161,16 +163,43 @@ then, in phases:
      against it on seeded cases (0 may differ), the nearest warp and gray
      counted only. Each step's wall is printed beside the card's name and
      power limit.
+ 14. the full-lecture drive (flagship_drive_torch.py), its own phases and
+     step table, at the flagship's widths 48..768, pixel kernel 7 and
+     1920x1080, cut in depth to 240 frames of 4 boards x 120 glyphs (4 GT
+     keyframes), 150 training steps at batch 8 on 256^2 crops, in
+     chip_smoke_ws/flagship: an MJPG AVI, the training step (with its
+     held-out probe through K2), the five staged CLIs, express, GT
+     authoring, scripts_torch/lecturenet_eval_keyframe_bin.py and
+     eval_summaries, each a child process as a user starts it. Every step
+     exits 0; K1 and K2 launch in stage 01 and express, K2 in the
+     training probe and keyframe_bin (whose full-output binarizer has no
+     K1); the staged summary (kept before express writes over it) and the
+     express summary split at the same samples with the same keyframes, at
+     least 2 of them inked; the training losses are finite; every metric
+     keyframe_bin and eval_summaries print is finite and in [0, 1] (the
+     board variants of the pixel metrics finite); the drive's report is
+     written in the workspace. Then 8 of the 1080p binaries the stage-01
+     child wrote with the trained checkpoint (bf16, K2 and K1) are held
+     within a 1% pixel flip rate of the plain f32 model on the same decoded
+     frames, on the card. Each step's wall, in-run time, child peak RSS,
+     card peak memory and launches print beside the card's name and power
+     limit, and the phase's wall after them. Without OpenCV (no video
+     codec) one line says it did not run.
 
-The launch counts are set to 0 just before each of the nine paths
-(phases 4, 6, 7, 8, 9, 10, 11, 12 and 13; in phase 10 around each mesh run, and
-the child processes count their own; in phase 11 the worker's children
-count theirs and report them with each stream) and read just after. Serving launches are graph replays times
-the launches each graph holds, counted by the service: the wrappers count
-once when a graph is captured. It prints one JSON line of kernel numbers,
-then as its last line ``{"ok": true, "device": {...}}``, and exits 0 only
-when every phase passed. Without CUDA, or without the package beside it, it
-exits non-zero and prints no result.
+Each phase's wall prints as it ends, and all of them on one line before the
+kernels line. The launch counts are set to 0 just before each of the ten
+paths (phases 4, 6, 7, 8, 9, 10, 11, 12, 13 and 14; in phase 10 around each
+mesh run, and the child processes count their own; in phase 11 the worker's
+children count theirs and report them with each stream; in phase 14 every
+step on the card counts its own in its child and reports them on its last
+line, the drive launches nothing in this process, and the comparison with
+the plain model after it does not count) and read just after.
+Serving launches are graph replays times the launches each graph holds,
+counted by the service: the wrappers count once when a graph is captured.
+It prints one JSON line of kernel numbers, then as its last line
+``{"ok": true, "device": {...}}``, and exits 0 only when every phase
+passed. Without CUDA, or without the package beside it, it exits non-zero
+and prints no result.
 """
 
 import json
@@ -261,8 +290,11 @@ def unpack(packed, width):
     return np.unpackbits(packed.cpu().numpy(), axis=-1)[..., :width]
 
 
-def phase_k1(batch):
-    """K1 against threshold_pack_plain; returns its kernel record."""
+def phase_k1(batch, flagship_batch):
+    """K1 against threshold_pack_plain, at the main path's shape, at the
+    full-lecture drive's 1080p stage-01 shape (``flagship_batch`` frames of
+    1088x1920 cropped to 1080x1920) and at odd shapes; returns its kernel
+    record."""
     import numpy as np
     import torch
 
@@ -275,6 +307,7 @@ def phase_k1(batch):
     hp, wp = 544, 960
     for shape, (h, w) in (((batch, hp, wp), (HEIGHT, WIDTH)),
                           ((16, hp, wp), (HEIGHT, WIDTH)),
+                          ((flagship_batch, 1088, 1920), (1080, 1920)),
                           ((3, 301, 133), (299, 131)), ((1, 37, 45), (37, 45))):
         logits = boundary_logits(shape, gen)
         got = unpack(threshold_pack(logits, h, w, THRESHOLD), w)
@@ -4596,7 +4629,275 @@ def phase_editors(counters, summary, card):
     return launches, numbers
 
 
+# --------------------------------------------------------------- phase 14
+
+# the full-lecture drive (flagship_drive_torch.py) at the flagship's width
+# and resolution, cut in depth: 240 frames of 1920x1080, 4 boards x 120
+# glyphs (4 GT keyframes), 150 training steps at batch 8 on 256^2 crops.
+# The recipe is the drive's environment, read when it is imported; its
+# steps' children inherit it.
+FLAGSHIP_ENV = {"LM_FLAGSHIP_FRAMES": "240", "LM_FLAGSHIP_HEIGHT": "1080",
+                "LM_FLAGSHIP_WIDTH": "1920", "LM_FLAGSHIP_BOARDS": "4",
+                "LM_FLAGSHIP_GLYPHS": "120", "LM_FLAGSHIP_TRAIN_STEPS": "150",
+                "LM_FLAGSHIP_CROP": "256"}
+FLAGSHIP_DIR = os.path.join(WORKSPACE, "flagship")
+# the kernels each step on the card must launch. keyframe_bin's binarizer
+# is the full-output one (Binarizer.binarize_frames: sigmoid, x255 and the
+# threshold in PyTorch, no bit packing), so it launches K2 and no K1, as
+# phase 9 counts it
+FLAGSHIP_KERNELS = {
+    "train checkpoint": ("conv_same_nhwc",),
+    "stage01 binarize": ("threshold_pack", "conv_same_nhwc"),
+    "express run_pipeline": ("threshold_pack", "conv_same_nhwc"),
+    "eval keyframe_bin": ("conv_same_nhwc",)}
+
+
+def summary_split(summary):
+    """(segments as (start, end), keyframe indices, keyframe file names) of
+    an exported summary's segments.xml and keyframes folder."""
+    import re
+
+    with open(os.path.join(summary, "segments.xml")) as f:
+        text = f.read()
+    starts = [int(v) for v in re.findall(r"<Start>(\d+)</Start>", text)]
+    ends = [int(v) for v in re.findall(r"<End>(\d+)</End>", text)]
+    indices = [int(v) for v in re.findall(r"<Index>(\d+)</Index>", text)]
+    return (list(zip(starts, ends)), indices,
+            sorted(os.listdir(os.path.join(summary, "keyframes"))))
+
+
+def printed_metrics(kb_text, es_text, lecture):
+    """Every metric keyframe_bin and eval_summaries printed, as fractions:
+    the CC tables (min R/P, recall, precision and their parts), the pixel
+    metrics (the board variants keep their ``board_`` names) and each
+    summary row's recall and precision (its frame count left out)."""
+    metrics = {}
+    scope = None
+    for line in kb_text.splitlines():
+        fields = line.split("\t")
+        if line.startswith("Metrics for scope:"):
+            scope = line.split(":", 1)[1].strip()
+        elif len(fields) == 10 and all(_number(f) for f in fields):
+            for col, value in enumerate(fields):
+                metrics[f"keyframe_bin {scope} {fields[0]}/{fields[1]} "
+                        f"column {col}"] = float(value) / 100
+        elif len(fields) == 2 and _number(fields[1]):
+            metrics[fields[0]] = float(fields[1]) / 100
+    threshold = None
+    for line in es_text.splitlines():
+        fields = line.split("\t")
+        if line.startswith("Min CC recall - Min CC precision:"):
+            threshold = line.split(":", 1)[1].split()
+            for value in threshold:
+                metrics[f"eval_summaries threshold {value}"] = \
+                    float(value) / 100
+        elif fields[0] in (lecture, "Averages") and len(fields) == 6:
+            for col, value in enumerate(fields[2:]):
+                metrics[f"eval_summaries {threshold} {fields[0]} "
+                        f"column {col}"] = float(value) / 100
+    return metrics
+
+
+def _number(text):
+    try:
+        float(text)
+    except ValueError:
+        return False
+    return True
+
+
+def flagship_flip_rate(drive, root, conf, artifact):
+    """8 binaries of the stage-01 artifact the drive's binarize child wrote
+    (``artifact``: bf16, K2 and K1 at 1080p, the trained checkpoint), spread
+    over the lecture, against the plain f32 model on the same frames decoded
+    from the MJPG video, on the card. Returns the flip rate."""
+    import pickle
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from lecturemath_tpu_torch.core.config import Config
+    from lecturemath_tpu_torch.models.convert import load_checkpoint
+    from lecturemath_tpu_torch.models.fcn_lecturenet import (
+        FCNConfig, FCNLectureNet, make_packed_binarizer, unpack_bits_host)
+    from lecturemath_tpu_torch.pipeline.binarize import Binarizer
+    from lecturemath_tpu_torch.pipeline.video import decompress_png
+
+    with open(artifact, "rb") as f:
+        _, indices, compressed = pickle.load(f)
+    picks = np.linspace(0, len(indices) - 1, 8).round().astype(int)
+    binaries = decompress_png([compressed[i] for i in picks])
+    capture = cv2.VideoCapture(os.path.join(root, "videos",
+                                            f"{drive.LECTURE}.avi"))
+    frames = []
+    for i in picks:
+        # SAMPLING_FPS 1 of a 1 fps video: sample index = frame index
+        capture.set(cv2.CAP_PROP_POS_FRAMES, int(indices[i]))
+        ok, frame = capture.read()
+        if not ok:
+            raise AssertionError(f"decode failed at frame {indices[i]}")
+        frames.append(frame[:, :, ::-1])
+    capture.release()
+
+    plain = FCNLectureNet(FCNConfig.from_config(Config.from_file(conf)),
+                          plain=True)
+    plain.load_state_dict(load_checkpoint(os.path.join(
+        root, "models", drive.MODEL_FILE)))
+    packed = make_packed_binarizer(Binarizer(plain, batch_size=4,
+                                             dtype=torch.float32).model)
+    flips = pixels = 0
+    for start in range(0, len(frames), 4):
+        chunk = torch.from_numpy(np.stack(frames[start:start + 4])).cuda()
+        ink_255 = 255 - unpack_bits_host(packed(chunk).cpu().numpy(),
+                                         drive.WIDTH)
+        for binary, reference in zip(binaries[start:start + 4], ink_255):
+            if binary.shape != reference.shape:
+                raise AssertionError(f"stage-01 binary {binary.shape}, plain "
+                                     f"{reference.shape}")
+            flips += int((binary != reference).sum())
+            pixels += reference.size
+    return flips / pixels
+
+
+def phase_flagship(counters, card):
+    """Phase 14: flagship_drive_torch.py's own phases and step table at the
+    flagship's width and resolution and 240 frames; each step on the card
+    counts its kernels in its child. Returns (launch counts summed over the
+    children, numbers)."""
+    import importlib
+    import importlib.util
+    import math
+
+    from lecturemath_tpu_torch.utils.png import read_image
+
+    for fn in counters.values():
+        fn.launches = 0
+    if importlib.util.find_spec("cv2") is None:
+        log("flagship drive: did not run: the drive writes and decodes an "
+            "MJPG video, and without cv2 there is no video codec")
+        return counted(counters), {}
+    t_phase = time.perf_counter()
+    saved = {key: os.environ.get(key)
+             for key in list(FLAGSHIP_ENV) + ["LM_FLAGSHIP_TINY"]}
+    os.environ.update(FLAGSHIP_ENV)
+    os.environ.pop("LM_FLAGSHIP_TINY", None)
+    try:
+        sys.modules.pop("flagship_drive_torch", None)
+        drive = importlib.import_module("flagship_drive_torch")
+        root = FLAGSHIP_DIR
+        shutil.rmtree(root, ignore_errors=True)
+        os.makedirs(root)
+        summary = os.path.join(root, "output", "summaries",
+                               f"{drive.DB_NAME}_{drive.LECTURE}")
+        staged_copy = os.path.join(root, "staged_summary")
+        binary = os.path.join(root, "output", "temporal",
+                              f"tempo_binary_{drive.LECTURE}.dat")
+        staged_binary = os.path.join(root, "staged_binary.dat")
+
+        def after(label, record):
+            # express writes over the staged outputs: keep the staged ones
+            if label == "stage01 binarize":
+                shutil.copyfile(binary, staged_binary)
+            elif label == "stage05 generate_summary":
+                shutil.copytree(summary, staged_copy)
+
+        t0 = time.perf_counter()
+        conf = drive.build_workspace(root)
+        workspace_s = time.perf_counter() - t0
+        records = drive.run_steps(root, conf, card=card, after=after)
+        report = drive.report(
+            root, records, round(time.perf_counter() - t_phase, 1), card,
+            workspace_s, out=os.path.join(root, drive.REPORT))
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    here = counted(counters)
+    if any(here.values()):
+        raise AssertionError(f"phase 14 launched a kernel in this process "
+                             f"(every step runs in a child): {here}")
+
+    launches = {name: sum(rec["launches"][name] for rec in records.values())
+                for name in counters}
+    for label, kernels in FLAGSHIP_KERNELS.items():
+        counts = records[label]["launches"]
+        missing = [name for name in kernels if counts.get(name, 0) <= 0]
+        if missing:
+            raise AssertionError(f"{label}: {missing} not launched "
+                                 f"({counts})")
+    staged, express = summary_split(staged_copy), summary_split(summary)
+    same_bytes = all(
+        open(os.path.join(staged_copy, "keyframes", name), "rb").read()
+        == open(os.path.join(summary, "keyframes", name), "rb").read()
+        for name in express[2]) if staged[2] == express[2] else False
+    log(f"flagship summaries: staged segments {staged[0]}, keyframes "
+        f"{staged[1]}; express segments {express[0]}, keyframes "
+        f"{express[1]}; keyframe PNGs byte-identical: {same_bytes}")
+    if staged[:2] != express[:2]:
+        raise AssertionError("the staged and express summaries differ")
+    inked = sum(
+        bool((read_image(os.path.join(staged_copy, "keyframes", name))
+              < 128).any()) for name in staged[2])
+    if inked < 2:
+        raise AssertionError(f"the summary holds {inked} inked keyframes")
+    stats = json.load(open(os.path.join(root, "train_stats.json")))
+    losses = [loss for _, loss in stats["losses"]]
+    if not losses or not all(math.isfinite(loss) for loss in losses):
+        raise AssertionError(f"training losses {losses}")
+    metrics = printed_metrics(records["eval keyframe_bin"]["stdout"],
+                              records["eval summaries"]["stdout"],
+                              drive.LECTURE)
+    if not any(key.startswith("keyframe_bin") for key in metrics) or \
+            not any(key.startswith("eval_summaries") for key in metrics) or \
+            "fmeasure" not in metrics:
+        raise AssertionError("keyframe_bin or eval_summaries printed no "
+                             "metrics")
+    check_metrics("flagship", metrics)
+    if not os.path.exists(report):
+        raise AssertionError(f"no report at {report}")
+    t0 = time.perf_counter()
+    flip_rate = flagship_flip_rate(drive, root, conf, staged_binary)
+    log(f"flagship stage-01 binaries at {drive.WIDTH}x{drive.HEIGHT} (bf16 "
+        f"kernels, trained checkpoint) vs plain f32 on 8 decoded frames: "
+        f"flip rate {flip_rate:.6f} (bound {MAX_FLIP_RATE}); "
+        f"{time.perf_counter() - t0:.3f} s")
+    if flip_rate > MAX_FLIP_RATE:
+        raise AssertionError(f"flagship stage-01 flip rate {flip_rate} > "
+                             f"{MAX_FLIP_RATE}")
+
+    steps = {label: {"wall_s": round(rec["wall_s"], 3),
+                     "in_run_s": rec.get("in_run_s"),
+                     "rss_mb": (round(rec["rss_mb"], 1)
+                                if rec.get("rss_mb") is not None else None),
+                     "card_peak_mib": (round(rec["card_peak_bytes"] / 2**20,
+                                             1)
+                                       if "card_peak_bytes" in rec else None),
+                     "launches": rec.get("launches")}
+             for label, rec in records.items()}
+    for label, numbers in steps.items():
+        log(f"  flagship step {label}: {json.dumps(numbers)}; {card}")
+    wall = time.perf_counter() - t_phase
+    gt = json.load(open(os.path.join(root, "gt_stats.json")))
+    log(f"flagship drive at {drive.WIDTH}x{drive.HEIGHT}, {drive.N_FRAMES} "
+        f"frames, {drive.N_BOARDS} boards x {drive.GLYPHS_PER_BOARD} glyphs, "
+        f"widths {drive.PRODUCTION_WIDTHS['DOWN_CONV_FILTERS']}: workspace "
+        f"{workspace_s:.3f} s, training {stats['steps']} steps in "
+        f"{stats['train_wall_s']} s (losses {stats['losses']}, held-out "
+        f"pixel acc {stats['pixel_acc']}), GT {gt}, {inked} inked summary "
+        f"keyframes, {len(metrics)} printed metrics finite and in range "
+        f"(fmeasure {metrics['fmeasure']:.4f}); stage-01 flip rate "
+        f"{flip_rate:.6f}; report {report}; phase {wall:.3f} s; launches "
+        f"{launches}; {card}")
+    return launches, {"steps": steps, "workspace_s": workspace_s,
+                      "phase_s": wall, "train": stats, "gt": gt,
+                      "flip_rate": flip_rate}
+
+
 def main():
+    t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(REPO, "lecturemath_tpu_torch")):
         print("chip_smoke.py: lecturemath_tpu_torch not found beside this "
               "script; run it from a checkout of the repository",
@@ -4648,96 +4949,81 @@ def main():
     counters = {"threshold_pack": threshold_pack,
                 "conv_same_nhwc": conv_same_nhwc,
                 "cc_label": label_components_batch}
-    batch = default_batch_size(WIDTH, HEIGHT, torch.device("cuda"))
-    log(f"main-path batch size: {batch}")
-    for name, phase in (("K1", lambda: phase_k1(batch)),
-                        ("K2", lambda: phase_k2(batch, FCNConfig()))):
+    walls = {"1 environment and build": time.perf_counter() - t_start}
+    log(f"phase 1 environment and build: "
+        f"{walls['1 environment and build']:.3f} s")
+
+    def run(name, fn, default=None):
+        """fn() as the phase ``name``: its wall printed and kept; a failure
+        printed and named, and ``default`` returned in its place."""
+        t0 = time.perf_counter()
         try:
-            records[name] = phase()
+            return fn()
         except Exception:  # noqa: BLE001 — report every phase, then fail
             traceback.print_exc()
-            failures.append(name)
-        torch.cuda.empty_cache()
+            failures.append(name.split(" ", 1)[1])
+            return default
+        finally:
+            walls[name] = time.perf_counter() - t0
+            log(f"phase {name}: {walls[name]:.3f} s")
+            torch.cuda.empty_cache()
 
-    launches = {}
+    batch = default_batch_size(WIDTH, HEIGHT, torch.device("cuda"))
+    # what the drive's stage-01 and express children take at 1080p (each
+    # starts on an empty card, as this process is here)
+    flagship_batch = default_batch_size(1920, 1080, torch.device("cuda"))
+    log(f"main-path batch size: {batch}; 1080p stage-01 batch size: "
+        f"{flagship_batch}")
+    for name, phase in (("2 K1", lambda: phase_k1(batch, flagship_batch)),
+                        ("3 K2", lambda: phase_k2(batch, FCNConfig()))):
+        record = run(name, phase)
+        if record is not None:
+            records[name.split()[1]] = record
+
+    def empty():
+        return {}, {}
+
+    launches, summary = empty()
     staged_launches = {}
-    serving_launches = {}
-    serving = {}
-    summary = {}
-    training_launches = {}
-    training = {}
-    evaluation_launches = {}
-    evaluation = {}
-    scale_launches = {}
-    scale = {}
-    worker_launches = {}
-    worker = {}
-    tooling_launches = {}
-    tooling = {}
-    editors_launches = {}
-    editors = {}
+    serving_launches, serving = empty()
+    training_launches, training = empty()
+    evaluation_launches, evaluation = empty()
+    scale_launches, scale = empty()
+    worker_launches, worker = empty()
+    tooling_launches, tooling = empty()
+    editors_launches, editors = empty()
+    flagship_launches, flagship = empty()
     try:
         conf, _ = make_workspace()
-        try:
-            launches, summary = phase_main_path(conf, counters)
-        except Exception:  # noqa: BLE001 — report every phase, then fail
-            traceback.print_exc()
-            failures.append("main path")
-        torch.cuda.empty_cache()
-        try:
-            records["K3"] = phase_k3(conf)
-        except Exception:  # noqa: BLE001 — report every phase, then fail
-            traceback.print_exc()
-            failures.append("K3")
-        torch.cuda.empty_cache()
-        try:
-            staged_launches = phase_staged(counters, summary.get("indices"))
-        except Exception:  # noqa: BLE001 — report every phase, then fail
-            traceback.print_exc()
-            failures.append("staged path")
-        torch.cuda.empty_cache()
-        try:
-            serving_launches, serving = phase_serving(conf, counters)
-        except Exception:  # noqa: BLE001 — report every phase, then fail
-            traceback.print_exc()
-            failures.append("serving path")
-        torch.cuda.empty_cache()
-        try:
-            training_launches, training = phase_training(counters)
-        except Exception:  # noqa: BLE001 — report every phase, then fail
-            traceback.print_exc()
-            failures.append("training path")
-        torch.cuda.empty_cache()
-        try:
-            evaluation_launches, evaluation = phase_evaluation(counters)
-        except Exception:  # noqa: BLE001 — report every phase, then fail
-            traceback.print_exc()
-            failures.append("evaluation path")
-        torch.cuda.empty_cache()
-        try:
-            scale_launches, scale = phase_scale_out(conf, counters, card)
-        except Exception:  # noqa: BLE001 — report every phase, then fail
-            traceback.print_exc()
-            failures.append("scale-out path")
-        torch.cuda.empty_cache()
-        try:
-            worker_launches, worker = phase_device_worker(conf, summary,
-                                                          card)
-        except Exception:  # noqa: BLE001 — report every phase, then fail
-            traceback.print_exc()
-            failures.append("device-worker path and device ops")
-        torch.cuda.empty_cache()
-        try:
-            tooling_launches, tooling = phase_tooling(counters, summary, card)
-        except Exception:  # noqa: BLE001 — report every phase, then fail
-            traceback.print_exc()
-            failures.append("tooling")
-        try:
-            editors_launches, editors = phase_editors(counters, summary,
-                                                      card)
-        except Exception:  # noqa: BLE001 — report every phase, then fail
-            traceback.print_exc()
-            failures.append("editors")
+        launches, summary = run(
+            "4 main path", lambda: phase_main_path(conf, counters), empty())
+        record = run("5 K3", lambda: phase_k3(conf))
+        if record is not None:
+            records["K3"] = record
+        staged_launches = run(
+            "6 staged path",
+            lambda: phase_staged(counters, summary.get("indices")), {})
+        serving_launches, serving = run(
+            "7 serving path", lambda: phase_serving(conf, counters), empty())
+        training_launches, training = run(
+            "8 training path", lambda: phase_training(counters), empty())
+        evaluation_launches, evaluation = run(
+            "9 evaluation path", lambda: phase_evaluation(counters), empty())
+        scale_launches, scale = run(
+            "10 scale-out path",
+            lambda: phase_scale_out(conf, counters, card), empty())
+        worker_launches, worker = run(
+            "11 device-worker path and device ops",
+            lambda: phase_device_worker(conf, summary, card), empty())
+        tooling_launches, tooling = run(
+            "12 tooling", lambda: phase_tooling(counters, summary, card),
+            empty())
+        editors_launches, editors = run(
+            "13 editors", lambda: phase_editors(counters, summary, card),
+            empty())
+        flagship_launches, flagship = run(
+            "14 flagship drive", lambda: phase_flagship(counters, card),
+            empty())
     except Exception:  # noqa: BLE001 — report every phase, then fail
         traceback.print_exc()
         failures.append("workspace")
@@ -4761,7 +5047,8 @@ def main():
                 "scale_out": scale_launches.get(name, 0),
                 "device_worker": worker_launches.get(name, 0),
                 "tooling": tooling_launches.get(name, 0),
-                "editors": editors_launches.get(name, 0)}
+                "editors": editors_launches.get(name, 0),
+                "flagship": flagship_launches.get(name, 0)}
     for key in SERVING_KERNELS:
         if key in records and serving:
             device_us = {bucket: numbers["device_us"]
@@ -4793,7 +5080,13 @@ def main():
         log(f"tooling on the card's host, {card}: " + json.dumps(tooling))
     if editors:
         log(f"editors on the card's host, {card}: " + json.dumps(editors))
+    if flagship:
+        log(f"flagship drive on {card}: " + json.dumps(
+            {"steps": flagship["steps"], "phase_s": flagship["phase_s"]}))
     log(f"express {summary.get('fps', 0):.2f} fps on {card}")
+    walls["all"] = time.perf_counter() - t_start
+    log(f"phase walls s on {card}: "
+        + json.dumps({k: round(v, 3) for k, v in walls.items()}))
     log(card)
     log(json.dumps({"kernels": list(records.values())}))
     if failures:

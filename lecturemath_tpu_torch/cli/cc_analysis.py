@@ -12,7 +12,6 @@ component split, where the card's kernel always reaches the fixed point.
 
 import sys
 
-from ..core.device import resolve_device
 from ..pipeline.driver import PipelineDriver, usage_check
 from ..pipeline.express import driver_device
 from ..pipeline.stages import stage02_cc_analysis
@@ -27,6 +26,8 @@ def main(argv=None):
                                              "BINARIZATION_OUTPUT",
                                              "CC_STABILITY_OUTPUT")
     if driver.config.get_bool("CC_ANALYSIS_DEVICE_LABELING", False):
+        from ..core.device import resolve_device
+
         resolve_device(driver_device(driver))    # this mode touches the card
     driver.run(stage02_cc_analysis)
     print("Finished")

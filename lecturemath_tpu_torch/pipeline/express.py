@@ -10,16 +10,20 @@ Results are identical to running the staged CLIs (tested)."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 from ..core.metadata import LectureInfo
 from ..data.space_time import SpaceTimeStruct
-from .binarize import Binarizer
 from .cc_tracking import CCTracker
 from .driver import PipelineDriver
 from .keyframes import close_interval_gaps, export_summary, extract_keyframes
 from .video import compress_png
 from . import segmentation as seg
+
+if TYPE_CHECKING:
+    # the binarizer (and torch) load only where a lecture is binarized:
+    # the host-only stage CLIs that import driver_device start without them
+    from .binarize import Binarizer
 
 
 def driver_device(driver: PipelineDriver) -> Optional[str]:
@@ -59,6 +63,8 @@ def run_lecture(driver: PipelineDriver, lecture: LectureInfo,
             binarizer = WorkerBinarizer.from_config(
                 config, device=driver_device(driver))
         else:
+            from .binarize import Binarizer
+
             binarizer = Binarizer.from_config(config,
                                               device=driver_device(driver))
     if source is None:

@@ -17,20 +17,24 @@ for the CPU. Stages 03-05 run on the host.
 
 from __future__ import annotations
 
-from typing import Any
+from typing import TYPE_CHECKING, Any
 
 import numpy as np
 
 from ..core.config import Config
 from ..core.metadata import LectureInfo
 from ..data.space_time import SpaceTimeStruct
-from .binarize import Binarizer
 from .cc_tracking import CCTracker
 from .driver import PipelineDriver
 from .express import driver_device
 from .keyframes import close_interval_gaps, export_summary, extract_keyframes
 from .video import compress_png, decompress_png
 from . import segmentation as seg
+
+if TYPE_CHECKING:
+    # torch loads with the binarizer, in stage 01 (and with K3 in stage
+    # 02's device labeling): the host stages' CLIs start without it
+    from .binarize import Binarizer
 
 
 # --------------------------------------------------------------- stage 01
@@ -43,6 +47,8 @@ def stage01_binarize(driver: PipelineDriver, lecture: LectureInfo,
     one is built on the device the driver's ``-device`` names (the card by
     default)."""
     if binarizer is None:
+        from .binarize import Binarizer
+
         binarizer = Binarizer.from_config(driver.config,
                                           device=driver_device(driver))
 

@@ -1,0 +1,12 @@
+#!/usr/bin/env python
+"""Drop-in wrapper for the reference script of the same name on the
+PyTorch port; forwards to lecturemath_tpu_torch.cli.prepare_text_masks."""
+import os
+import sys
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+
+from lecturemath_tpu_torch.cli.prepare_text_masks import main
+
+if __name__ == "__main__":
+    main()

@@ -21,10 +21,18 @@ def _banned(module: str) -> bool:
 
 
 def _port_files():
-    files = [os.path.join(REPO, "chip_smoke.py")]
-    for root, _, names in os.walk(os.path.join(REPO, PACKAGE)):
-        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "flagship_drive_torch.py")]
+    for directory in (PACKAGE, "scripts_torch"):
+        for root, _, names in os.walk(os.path.join(REPO, directory)):
+            files += [os.path.join(root, n) for n in names
+                      if n.endswith(".py")]
     return sorted(files)
+
+
+def _is_wrapper(path: str) -> bool:
+    """A run-book wrapper of scripts_torch/: a script, not a module."""
+    return os.path.basename(os.path.dirname(path)) == "scripts_torch"
 
 
 def _module_name(path: str) -> str:
@@ -74,7 +82,7 @@ def test_no_banned_import_statement(path):
 
 
 _BLOCKED_IMPORT = r"""
-import importlib, os, sys
+import importlib, importlib.util, os, sys
 BANNED = %r
 
 class Block:
@@ -90,20 +98,26 @@ sys.meta_path.insert(0, Block())
 sys.path.insert(0, %r)
 for module in %r:
     importlib.import_module(module)
+for path in %r:
+    spec = importlib.util.spec_from_file_location("wrapper", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 print("imported", len(%r))
 """
 
 
 def test_every_port_module_imports_with_jax_blocked():
     modules = [_module_name(p) for p in _port_files()
-               if not p.endswith("chip_smoke.py")]
-    script = _BLOCKED_IMPORT % (BANNED, REPO, modules, modules)
+               if not p.endswith("chip_smoke.py") and not _is_wrapper(p)]
+    wrappers = [p for p in _port_files() if _is_wrapper(p)]
+    assert len(wrappers) == 18
+    script = _BLOCKED_IMPORT % (BANNED, REPO, modules, wrappers,
+                                modules + wrappers)
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     result = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                             capture_output=True, text=True, timeout=120,
                             env=env)
     assert result.returncode == 0, result.stderr[-3000:]
-    assert f"imported {len(modules)}" in result.stdout
+    assert f"imported {len(modules) + len(wrappers)}" in result.stdout
 
 
 SLICE_MODULES = [
@@ -491,3 +505,24 @@ def test_eval_path_needs_no_opencv(tmp_path):
     assert "Finished" in result.stdout
     assert (tmp_path / "saved" / "FCN" / "kb01" / "binary" / "500.png") \
         .exists()
+
+
+HOST_MODULES = [
+    *[f"lecturemath_tpu_torch.cli.{name}" for name in (
+        "cc_analysis", "cc_grouping", "vid_segmentation", "generate_summary")],
+    "lecturemath_tpu_torch.eval.gt_authoring",
+]
+
+
+def test_host_steps_start_without_torch():
+    """Stages 02-05's CLIs and GT authoring load no torch when imported:
+    the binarizer (and torch with it) loads where a lecture is binarized or
+    labeled on the card. On the card's machine importing torch takes
+    seconds of each host step's start."""
+    code = (f"import importlib, sys; sys.path.insert(0, {REPO!r}); "
+            f"[importlib.import_module(m) for m in {HOST_MODULES!r}]; "
+            f"print('torch' in sys.modules)")
+    result = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                            capture_output=True, text=True, timeout=120)
+    assert result.returncode == 0, result.stderr[-3000:]
+    assert result.stdout.strip() == "False"
