@@ -185,15 +185,36 @@ then, in phases:
      card peak memory and launches print beside the card's name and power
      limit, and the phase's wall after them. Without OpenCV (no video
      codec) one line says it did not run.
+ 15. the mesh's model axis for inference at the same widths, bf16, BN
+     folded, on meshes over [cuda:0] * n (the shards share the one card:
+     the sharded math and K1 and K2 on the shards, no communication
+     between cards): (a) express over phase 4's lecture through a
+     channel-sharded Binarizer on 1x2, batch 16, with a summary equal to
+     phase 4's, and 8 frames within the 1% flip rate of plain f32; (b)
+     ShardedBinarizer(shard_params_over_model=True) on 2x2 over 8 frames
+     with seeded random weights (every layer reaches the logits); (c)
+     ShardedBinarizer(shard_spatial=True) on 1x2 and 1x4 over two 4K board
+     scans (3840x2160, padded to 2176 rows) and, on 1x4, a 96-row strip
+     that leaves the last shard without rows, each against the meshless
+     1x1 ShardedBinarizer in bf16 (flips printed) and plain f32 (1%). Each
+     prints ms a batch against meshless (CUDA events; the price of the
+     gathers and halos, not a speed-up), the card's peak memory and the K1
+     and K2 launches, which must be K1 > 0 and K2 = 4 x the shards holding
+     rows x the batches. (d), with 2 or more cards only: cli.binarize -mesh
+     1x2 over 2 cards in-process and in a 2-process NCCL world, each
+     writing the meshless artifact; otherwise one line says it did not
+     run.
 
 Each phase's wall prints as it ends, and all of them on one line before the
-kernels line. The launch counts are set to 0 just before each of the ten
-paths (phases 4, 6, 7, 8, 9, 10, 11, 12, 13 and 14; in phase 10 around each
-mesh run, and the child processes count their own; in phase 11 the worker's
-children count theirs and report them with each stream; in phase 14 every
-step on the card counts its own in its child and reports them on its last
-line, the drive launches nothing in this process, and the comparison with
-the plain model after it does not count) and read just after.
+kernels line. The launch counts are set to 0 just before each of the eleven
+paths (phases 4, 6, 7, 8, 9, 10, 11, 12, 13, 14 and 15; in phase 10 around
+each mesh run, and the child processes count their own; in phase 11 the
+worker's children count theirs and report them with each stream; in phase
+14 every step on the card counts its own in its child and reports them on
+its last line, the drive launches nothing in this process, and the
+comparison with the plain model after it does not count; in phase 15
+around each of its gated runs, its comparisons and timings not counted)
+and read just after.
 Serving launches are graph replays times the launches each graph holds,
 counted by the service: the wrappers count once when a graph is captured.
 It prints one JSON line of kernel numbers, then as its last line
@@ -290,42 +311,54 @@ def unpack(packed, width):
     return np.unpackbits(packed.cpu().numpy(), axis=-1)[..., :width]
 
 
-def phase_k1(batch, flagship_batch):
-    """K1 against threshold_pack_plain, at the main path's shape, at the
-    full-lecture drive's 1080p stage-01 shape (``flagship_batch`` frames of
-    1088x1920 cropped to 1080x1920) and at odd shapes; returns its kernel
-    record."""
+def k1_check(shape, h, w, gen):
+    """K1 against threshold_pack_plain on boundary logits of ``shape``
+    cropped to h x w: raises for a bit that differs outside the 2-ulp band
+    (or for more than 5% of the band flipped); returns the largest bit
+    difference outside the band."""
     import numpy as np
     import torch
 
     from lecturemath_tpu_torch.ops.postprocess import (threshold_pack,
                                                        threshold_pack_plain)
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
     band_width = 2 * float(np.spacing(np.float32(THRESHOLD)))
+    logits = boundary_logits(shape, gen)
+    got = unpack(threshold_pack(logits, h, w, THRESHOLD), w)
+    ref = unpack(threshold_pack_plain(logits, h, w, THRESHOLD), w)
+    scaled = (torch.sigmoid(logits[:, :h, :w]) * 255).cpu().numpy()
+    band = np.abs(scaled - THRESHOLD) <= band_width
+    differ = got != ref
+    outside = int((differ & ~band).sum())
+    log(f"K1 {shape} crop {h}x{w}: {outside} differing bits outside the "
+        f"2-ulp band, {int(differ.sum())} inside of {int(band.sum())} "
+        f"band pixels")
+    if outside:
+        raise AssertionError(f"K1 disagrees with its plain version at "
+                             f"{shape}")
+    if differ.sum() > 0.05 * band.sum():
+        raise AssertionError(f"K1: too many band flips at {shape}")
+    return int(np.abs(got.astype(int) - ref.astype(int))[~band].max())
+
+
+def phase_k1(batch, flagship_batch):
+    """K1 against threshold_pack_plain, at the main path's shape, at the
+    full-lecture drive's 1080p stage-01 shape (``flagship_batch`` frames of
+    1088x1920 cropped to 1080x1920) and at odd shapes; returns its kernel
+    record."""
+    import torch
+
+    from lecturemath_tpu_torch.ops.postprocess import (threshold_pack,
+                                                       threshold_pack_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
     max_err = 0
     hp, wp = 544, 960
     for shape, (h, w) in (((batch, hp, wp), (HEIGHT, WIDTH)),
                           ((16, hp, wp), (HEIGHT, WIDTH)),
                           ((flagship_batch, 1088, 1920), (1080, 1920)),
                           ((3, 301, 133), (299, 131)), ((1, 37, 45), (37, 45))):
-        logits = boundary_logits(shape, gen)
-        got = unpack(threshold_pack(logits, h, w, THRESHOLD), w)
-        ref = unpack(threshold_pack_plain(logits, h, w, THRESHOLD), w)
-        scaled = (torch.sigmoid(logits[:, :h, :w]) * 255).cpu().numpy()
-        band = np.abs(scaled - THRESHOLD) <= band_width
-        differ = got != ref
-        outside = int((differ & ~band).sum())
-        log(f"K1 {shape} crop {h}x{w}: {outside} differing bits outside the "
-            f"2-ulp band, {int(differ.sum())} inside of {int(band.sum())} "
-            f"band pixels")
-        if outside:
-            raise AssertionError(f"K1 disagrees with its plain version at "
-                                 f"{shape}")
-        if differ.sum() > 0.05 * band.sum():
-            raise AssertionError(f"K1: too many band flips at {shape}")
-        max_err = max(max_err, int(np.abs(got.astype(int)
-                                          - ref.astype(int))[~band].max()))
+        max_err = max(max_err, k1_check(shape, h, w, gen))
 
     logits = boundary_logits((batch, hp, wp), gen)
     ms = cuda_ms(lambda: threshold_pack(logits, HEIGHT, WIDTH, THRESHOLD), 20)
@@ -362,6 +395,46 @@ def head_shapes(cfg):
             ("out_conv", c, p2, 1, None, torch.float32)]
 
 
+def k2_inputs(gen, batch, c1, c2, n_out, k, h, w):
+    """Random bf16 channels_last inputs (x2 None for c2 = 0), weight and
+    bias of a K2 call."""
+    import torch
+
+    def bf16_input(channels):
+        return torch.randn(batch, channels, h, w, device="cuda",
+                           generator=gen).to(torch.bfloat16).contiguous(
+                               memory_format=torch.channels_last)
+
+    c_in = c1 + c2
+    x = bf16_input(c1)
+    x2 = bf16_input(c2) if c2 else None
+    weight = (torch.randn(n_out, c_in, k, k, device="cuda", generator=gen)
+              / (c_in * k * k) ** 0.5).to(torch.bfloat16)
+    bias = (torch.randn(n_out, device="cuda", generator=gen) * 0.1).to(
+        torch.bfloat16)
+    return x, x2, weight, bias
+
+
+def k2_check(x, x2, weight, bias, act, out_dtype):
+    """K2 against conv_same_plain (f32) on the same inputs: (max |err|,
+    its largest excess over K2_REL * |ref| + K2_ABS); raises where the
+    excess is positive."""
+    import torch
+
+    from lecturemath_tpu_torch.ops.conv7 import conv_same_nhwc, conv_same_plain
+
+    got = conv_same_nhwc(x, weight, bias, act, out_dtype, x2=x2).float()
+    ref = conv_same_plain(x, weight, bias, act, torch.float32, x2=x2)
+    err = (got - ref).abs()
+    kind = "f32" if out_dtype == torch.float32 else "bf16"
+    excess = (err - K2_REL[kind] * ref.abs() - K2_ABS).max().item()
+    if excess > 0:
+        raise AssertionError(f"K2 outside tolerance at x {tuple(x.shape)}, "
+                             f"x2 {None if x2 is None else tuple(x2.shape)}, "
+                             f"N {weight.shape[0]}: excess {excess:.3g}")
+    return err.max().item(), excess
+
+
 def phase_k2(batch, cfg):
     """K2 against conv_same_plain at the head shapes; returns its record."""
     import torch
@@ -377,26 +450,12 @@ def phase_k2(batch, cfg):
     flops = n_bytes = 0
     max_err = 0.0
 
-    def bf16_input(channels):
-        return torch.randn(batch, channels, hp, wp, device="cuda",
-                           generator=gen).to(torch.bfloat16).contiguous(
-                               memory_format=torch.channels_last)
-
     for name, c1, c2, n_out, act, out_dtype in head_shapes(cfg):
         c_in = c1 + c2
-        x = bf16_input(c1)
-        x2 = bf16_input(c2) if c2 else None
-        weight = (torch.randn(n_out, c_in, k, k, device="cuda", generator=gen)
-                  / (c_in * k * k) ** 0.5).to(torch.bfloat16)
-        bias = (torch.randn(n_out, device="cuda", generator=gen) * 0.1).to(
-            torch.bfloat16)
-        got = conv_same_nhwc(x, weight, bias, act, out_dtype, x2=x2).float()
-        ref = conv_same_plain(x, weight, bias, act, torch.float32, x2=x2)
-        err = (got - ref).abs()
+        x, x2, weight, bias = k2_inputs(gen, batch, c1, c2, n_out, k, hp, wp)
+        err, excess = k2_check(x, x2, weight, bias, act, out_dtype)
         kind = "f32" if out_dtype == torch.float32 else "bf16"
-        excess = (err - K2_REL[kind] * ref.abs() - K2_ABS).max().item()
-        max_err = max(max_err, err.max().item())
-        del got, ref, err
+        max_err = max(max_err, err)
         reps = 3
         ms = cuda_ms(lambda: conv_same_nhwc(x, weight, bias, act, out_dtype,
                                             x2=x2), reps)
@@ -424,8 +483,6 @@ def phase_k2(batch, cfg):
             f"ms, cat + cuDNN {cat_ms:.3f} ms; {f / ms / 1e9:.1f} TFLOP/s, "
             f"bound {bound:.3f} ms = {bound / ms:.3f} of the kernel's time; "
             f"faster than cuDNN: {ms < library_ms}")
-        if excess > 0:
-            raise AssertionError(f"K2 {name} outside tolerance")
         totals["ms"] += ms
         totals["plain_ms"] += plain_ms
         totals["library_ms"] += library_ms
@@ -4896,6 +4953,483 @@ def phase_flagship(counters, card):
                       "flip_rate": flip_rate}
 
 
+# --------------------------------------------------------------- phase 15
+
+# the model axis on one card: a mesh over [cuda:0] * n puts n shards on the
+# one card, which runs the sharded math and K1 and K2 on the shards (it
+# proves no communication between cards); (a) phase 4's lecture at this
+# batch through a channel-sharded Binarizer on 1x2, (b) ShardedBinarizer's
+# channel shards on 2x2 over this many frames, (c) the height-sharded path
+# on two 4K board scans (the JAX package's "one 4K board scan") on 1x2 and
+# 1x4, padded to 2176 rows, and a strip whose 3 row units leave a 1x4
+# mesh's last shard without rows
+AXIS_BATCH = 16
+AXIS_FRAMES = 8
+SCAN_HEIGHT, SCAN_WIDTH = 2160, 3840
+SCAN_PICK = (3, 7)          # of an 8-frame scan lecture: half, then all ink
+STRIP_HEIGHT = 96
+AXIS_REPS = 3               # timed calls a path (CUDA events), after one
+HEADS = 4                   # K2 launches a shard a batch
+# binaries of a model-axis path against the meshless bf16 ones on the same
+# card: both round every intermediate to bf16, and differ only where a
+# sharded layer sums in another order and a pixel sits at the threshold
+# (2e-5 at most on the card); a wrong gather or halo flips whole rows
+AXIS_MAX_FLIPS_VS_BF16 = 1e-4
+
+
+def axis_kernels(net_config):
+    """K2 and K1 against their plain versions at the shapes the model axis
+    gives them: K2 on the heads' channel slices (M = 2 at (a)'s and (b)'s
+    batches, and N down to 2 at M = 4 and 8) and on the halo slabs of (c)
+    (every head, width 3840), K1 on (c)'s slab logits cropped to their
+    valid rows. Returns (K2's max |err|, K1's largest bit error outside
+    the band)."""
+    import torch
+
+    from lecturemath_tpu_torch.parallel.model_axis import slab_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    k = net_config.pixel_kernel_size
+    heads = head_shapes(net_config)
+    cases = []
+    for model, batch in ((2, AXIS_BATCH), (2, AXIS_FRAMES // 2),
+                         (4, AXIS_FRAMES // 2), (8, AXIS_FRAMES // 2)):
+        cases += [(f"{name} channels /{model}", batch, c1, c2,
+                   n_out // model, act, out_dtype, 544, 960)
+                  for name, c1, c2, n_out, act, out_dtype in heads
+                  if n_out % model == 0 and n_out >= model]
+    k1_shapes = []
+    scan_rows = -(-SCAN_HEIGHT // 32) * 32
+    for model, frames, height, valid in (
+            (2, len(SCAN_PICK), scan_rows, SCAN_HEIGHT),
+            (4, len(SCAN_PICK), scan_rows, SCAN_HEIGHT),
+            (4, len(SCAN_PICK) - 1, STRIP_HEIGHT, STRIP_HEIGHT)):
+        rows = [r for r in slab_rows(height, model) if r]
+        cases += [(f"{name} slab 1x{model}", frames, c1, c2, n_out, act,
+                   out_dtype, rows[0] + 2 * (k // 2), SCAN_WIDTH)
+                  for name, c1, c2, n_out, act, out_dtype in heads]
+        k1_shapes.append(((frames, rows[-1], SCAN_WIDTH),
+                          valid - sum(rows[:-1])))
+    k2_err = 0.0
+    for what, batch, c1, c2, n_out, act, out_dtype, h, w in cases:
+        x, x2, weight, bias = k2_inputs(gen, batch, c1, c2, n_out, k, h, w)
+        err, excess = k2_check(x, x2, weight, bias, act, out_dtype)
+        k2_err = max(k2_err, err)
+        log(f"K2 model axis {what} [{batch},{c1}+{c2},{h},{w}] -> {n_out} "
+            f"ch: max |err| {err:.3g} (excess over tolerance {excess:.3g})")
+        del x, x2
+    torch.cuda.empty_cache()
+    k1_err = max(k1_check(shape, valid, SCAN_WIDTH, gen)
+                 for shape, valid in k1_shapes)
+    log(f"model axis kernels: K2 at {len(cases)} shapes within K2_REL/K2_ABS "
+        f"(max |err| {k2_err:.3g}), K1 at {len(k1_shapes)} slab shapes "
+        f"(largest bit error outside the band {k1_err})")
+    return k2_err, k1_err
+
+
+def card_mesh(data, model):
+    import torch
+
+    from lecturemath_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    return make_mesh(MeshSpec(data, model),
+                     [torch.device("cuda", 0)] * (data * model))
+
+
+def axis_counted(counters, fn):
+    """fn() with every count set to 0 just before and read just after:
+    (its result, the counts, the card's peak GiB during it)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for counter in counters.values():
+        counter.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, counted(counters),
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def axis_gate(what, launches, shards, batches):
+    """K1 launched, and K2 once a head a shard holding rows a batch."""
+    expected = HEADS * shards * batches
+    if launches["threshold_pack"] <= 0:
+        raise AssertionError(f"{what}: K1 not launched")
+    if launches["conv_same_nhwc"] != expected:
+        raise AssertionError(f"{what}: K2 launched "
+                             f"{launches['conv_same_nhwc']} times, expected "
+                             f"{expected} = {HEADS} x {shards} shards x "
+                             f"{batches} batches")
+
+
+def plain_bits(state_dict, net_config, frames):
+    """The plain f32 model's binaries of uint8 RGB ``frames`` (on the
+    card), and its logits."""
+    import torch
+
+    from lecturemath_tpu_torch.models.fcn_lecturenet import (
+        FCNLectureNet, make_packed_binarizer, unpack_bits_host)
+
+    plain = FCNLectureNet(net_config, plain=True)
+    plain.load_state_dict(state_dict)
+    plain = plain.cuda().eval()
+    bits = make_packed_binarizer(plain)(frames.cuda())
+    out = unpack_bits_host(bits.cpu().numpy(), frames.shape[2])
+    del plain
+    torch.cuda.empty_cache()
+    return out
+
+
+def flips(a, b):
+    import numpy as np
+
+    return int(np.sum(a != b)), float(np.mean(a != b))
+
+
+def axis_channel_lecture(conf, counters, summary, card):
+    """(a): express over phase 4's lecture through a channel-sharded
+    Binarizer on 1x2; returns (launches, numbers)."""
+    import numpy as np
+    import torch
+
+    from lecturemath_tpu_torch.models.convert import load_checkpoint
+    from lecturemath_tpu_torch.models.fcn_lecturenet import (FCNLectureNet,
+                                                             unpack_bits_host)
+    from lecturemath_tpu_torch.pipeline.binarize import Binarizer
+    from lecturemath_tpu_torch.pipeline.driver import PipelineDriver
+    from lecturemath_tpu_torch.pipeline.express import run_lecture
+
+    driver = PipelineDriver.from_config_path(conf, [], None, None)
+    lecture = driver.database.lectures[0]
+    meshed = Binarizer.from_config(driver.config, mesh=card_mesh(1, 2),
+                                   batch_size=AXIS_BATCH)
+    meshless = Binarizer.from_config(driver.config, batch_size=AXIS_BATCH)
+    assert [r.model_index for r in meshed._replicas] == [0, 1]
+    source = make_source()
+    batch = torch.from_numpy(np.stack(
+        [source.rgb_frame(t) for t in range(AXIS_BATCH)])).cuda()
+    for binarizer in (meshed, meshless):   # cuDNN's choice, the allocator
+        binarizer._packed_fn(batch)
+    t0 = time.perf_counter()
+    (indices, times, keyframes), launches, peak = axis_counted(
+        counters, lambda: run_lecture(driver, lecture, meshed,
+                                      source=make_source(), export=False))
+    fps = N_FRAMES / (time.perf_counter() - t0)
+    batches = -(-N_FRAMES // AXIS_BATCH)
+    axis_gate("(a) express, channels 1x2", launches, 2, batches)
+    if (list(indices), list(times)) != (summary["indices"],
+                                        summary["times"]) or \
+            len(keyframes) != len(summary["keyframes"]) or any(
+                not np.array_equal(a, b)
+                for a, b in zip(keyframes, summary["keyframes"])):
+        raise AssertionError("express on the 1x2 channel mesh: the summary "
+                             "differs from phase 4's")
+    pick = [0, 30, 60, 119, 120, 150, 200, 239]
+    frames = torch.from_numpy(np.stack([source.rgb_frame(t) for t in pick]))
+    ours = unpack_bits_host(meshed._packed_fn(frames.cuda()).cpu().numpy(),
+                            WIDTH)
+    bf16 = unpack_bits_host(meshless._packed_fn(frames.cuda()).cpu()
+                            .numpy(), WIDTH)
+    state = load_checkpoint(os.path.join(WORKSPACE, "models", "smoke.dat"))
+    f32 = plain_bits(state, meshed.model.config, frames)
+    vs_bf16, vs_f32 = flips(ours, bf16), flips(ours, f32)
+    if vs_bf16[1] > AXIS_MAX_FLIPS_VS_BF16 or vs_f32[1] > MAX_FLIP_RATE:
+        raise AssertionError(f"(a) flip rates {vs_bf16}, {vs_f32}")
+    # smoke.dat's threshold heads read no trunk channel: the same frames
+    # through Binarizers over seeded weights that reach every layer
+    random_state = random_weights(meshed.model.config)[0]
+    model = FCNLectureNet(meshed.model.config)
+    model.load_state_dict(random_state)
+    trunk = {"1x2": Binarizer(model, batch_size=AXIS_BATCH,
+                              mesh=card_mesh(1, 2), dtype=torch.bfloat16),
+             "meshless": Binarizer(model, batch_size=AXIS_BATCH,
+                                   dtype=torch.bfloat16)}
+    trunk["1x2"]._packed_fn(frames.cuda())
+    trunk_bits, trunk_launches, _ = axis_counted(
+        counters, lambda: trunk["1x2"]._packed_fn(frames.cuda()))
+    axis_gate("(a) seeded weights, channels 1x2", trunk_launches, 2, 1)
+    trunk_bits = unpack_bits_host(trunk_bits.cpu().numpy(), WIDTH)
+    trunk_bf16 = flips(trunk_bits, unpack_bits_host(
+        trunk["meshless"]._packed_fn(frames.cuda()).cpu().numpy(), WIDTH))
+    trunk_f32 = flips(trunk_bits,
+                      plain_bits(random_state, model.config, frames))
+    if trunk_bf16[1] > AXIS_MAX_FLIPS_VS_BF16 or \
+            trunk_f32[1] > MAX_FLIP_RATE:
+        raise AssertionError(f"(a) seeded weights: flip rates {trunk_bf16}, "
+                             f"{trunk_f32}")
+    del trunk, model
+    ms = {"1x2": cuda_ms(lambda: meshed._packed_fn(batch), AXIS_REPS),
+          "meshless": cuda_ms(lambda: meshless._packed_fn(batch),
+                              AXIS_REPS)}
+    for which, binarizer in (("1x2", meshed), ("meshless", meshless)):
+        device_breakdown(lambda: binarizer._packed_fn(batch),
+                         f"model axis (a) {which}, a batch of {AXIS_BATCH}")
+    log(f"model axis (a) channels 1x2, express over {N_FRAMES} frames "
+        f"{WIDTH}x{HEIGHT} in batches of {AXIS_BATCH} at {fps:.2f} fps end "
+        f"to end: summary = phase 4's "
+        f"({len(keyframes)} keyframes at {list(indices)}); {len(pick)} "
+        f"frames vs meshless bf16: {vs_bf16[0]} pixels flipped "
+        f"({vs_bf16[1]:.2e}, bound {AXIS_MAX_FLIPS_VS_BF16}); vs plain f32: "
+        f"{vs_f32[0]} ({vs_f32[1]:.2e}, bound {MAX_FLIP_RATE}); the same "
+        f"frames over seeded weights reaching the trunk: vs meshless bf16 "
+        f"{trunk_bf16[0]} ({trunk_bf16[1]:.2e}), vs plain f32 "
+        f"{trunk_f32[0]} ({trunk_f32[1]:.2e}), launches {trunk_launches}; "
+        f"ms a batch of {AXIS_BATCH} (CUDA events, mean of {AXIS_REPS}) "
+        f"{json.dumps(ms)}; peak {peak:.2f} GiB; express launches "
+        f"{launches} (K2 = {HEADS} x 2 shards x {batches} batches); on "
+        f"{card}")
+    del meshed, meshless
+    torch.cuda.empty_cache()
+    total = {name: launches[name] + trunk_launches[name]
+             for name in launches}
+    return total, {"fps": fps, "ms": ms, "peak_gib": peak,
+                   "flips_vs_bf16": vs_bf16, "flips_vs_f32": vs_f32,
+                   "seeded_flips_vs_bf16": trunk_bf16,
+                   "seeded_flips_vs_f32": trunk_f32}
+
+
+def random_weights(net_config, seed=0):
+    """Seeded xavier-normal weights everywhere, heads included, so the
+    logits depend on every layer: (state dict, the bf16 folded model on
+    the card)."""
+    import torch
+
+    from lecturemath_tpu_torch.models.fcn_lecturenet import (
+        FCNLectureNet, fold_model, init_weights)
+
+    model = init_weights(FCNLectureNet(net_config),
+                         torch.Generator().manual_seed(seed)).eval()
+    folded = fold_model(model).to(device="cuda", dtype=torch.bfloat16,
+                                  memory_format=torch.channels_last).eval()
+    return model.state_dict(), folded
+
+
+def axis_channel_four(net_config, counters, card):
+    """(b): ShardedBinarizer's channel shards on 2x2, with random weights,
+    against meshless bf16 and plain f32; returns (launches, numbers)."""
+    import numpy as np
+    import torch
+
+    from lecturemath_tpu_torch.parallel.inference import (ShardedBinarizer,
+                                                           sharded_forward)
+
+    state, folded = random_weights(net_config)
+    source = make_source()
+    frames = np.stack([source.rgb_frame(t) for t in
+                       np.linspace(0, N_FRAMES - 1, AXIS_FRAMES).astype(int)])
+    mesh = card_mesh(2, 2)
+    four = ShardedBinarizer(folded, mesh, shard_params_over_model=True)
+    meshless = ShardedBinarizer(random_weights(net_config)[1],
+                                card_mesh(1, 1))
+    assert [s.model_index for s in four.shards] == [0, 1, 0, 1]
+    four.binarize_frames(frames)
+    ours, launches, peak = axis_counted(
+        counters, lambda: four.binarize_frames(frames))
+    axis_gate("(b) ShardedBinarizer channels 2x2", launches, 4, 1)
+    bf16 = meshless.binarize_frames(frames)
+    f32 = plain_bits(state, net_config, torch.from_numpy(frames))
+    vs_bf16, vs_f32 = flips(ours, bf16), flips(ours, f32)
+    if vs_bf16[1] > AXIS_MAX_FLIPS_VS_BF16 or vs_f32[1] > MAX_FLIP_RATE:
+        raise AssertionError(f"(b) flip rates {vs_bf16}, {vs_f32}")
+    ms = {"2x2": cuda_ms(lambda: sharded_forward(mesh, four._fns, frames),
+                         AXIS_REPS),
+          "meshless": cuda_ms(lambda: sharded_forward(
+              meshless.mesh, meshless._fns, frames), AXIS_REPS)}
+    log(f"model axis (b) ShardedBinarizer channels 2x2 (4 shards), "
+        f"{AXIS_FRAMES} frames {WIDTH}x{HEIGHT}, seeded random weights: vs "
+        f"meshless bf16 {vs_bf16[0]} pixels flipped ({vs_bf16[1]:.2e}, "
+        f"bound {AXIS_MAX_FLIPS_VS_BF16}); vs "
+        f"plain f32 {vs_f32[0]} ({vs_f32[1]:.2e}, bound {MAX_FLIP_RATE}); "
+        f"ms a call of {AXIS_FRAMES} frames {json.dumps(ms)}; peak "
+        f"{peak:.2f} GiB; launches {launches}; on {card}")
+    del four, meshless, folded
+    torch.cuda.empty_cache()
+    return launches, {"ms": ms, "peak_gib": peak, "flips_vs_bf16": vs_bf16,
+                      "flips_vs_f32": vs_f32}
+
+
+def axis_height(net_config, counters, card):
+    """(c): the height-sharded path on two 4K board scans at 1x2 and 1x4,
+    and a strip that leaves a shard without rows; returns (launches,
+    numbers)."""
+    import numpy as np
+    import torch
+
+    from lecturemath_tpu_torch.parallel.inference import (ShardedBinarizer,
+                                                           sharded_forward)
+    from lecturemath_tpu_torch.parallel.model_axis import slab_rows
+    from lecturemath_tpu_torch.utils.synthetic import \
+        SyntheticRGBLectureSource
+
+    scan = SyntheticRGBLectureSource(
+        seed=1, n_frames=8, height=SCAN_HEIGHT, width=SCAN_WIDTH,
+        n_boards=1, glyphs_per_board=60, glyph_size=(80, 120))
+    frames = np.stack([scan.rgb_frame(t) for t in SCAN_PICK])
+    strip = np.ascontiguousarray(frames[1:, 1000:1000 + STRIP_HEIGHT])
+    state, folded = random_weights(net_config)
+    meshless = ShardedBinarizer(folded, card_mesh(1, 1))
+    expected = {"scan": meshless.binarize_frames(frames),
+                "strip": meshless.binarize_frames(strip)}
+    f32 = {"scan": plain_bits(state, net_config, torch.from_numpy(frames)),
+           "strip": plain_bits(state, net_config, torch.from_numpy(strip))}
+    padded = -(-SCAN_HEIGHT // 32) * 32
+    pad = np.pad(frames, ((0, 0), (0, padded - SCAN_HEIGHT), (0, 0),
+                          (0, 0)), mode="edge")
+    ms = {"meshless": cuda_ms(lambda: sharded_forward(
+        meshless.mesh, meshless._fns, pad), AXIS_REPS)}
+    device_breakdown(lambda: sharded_forward(meshless.mesh, meshless._fns,
+                                             pad),
+                     f"model axis (c) meshless, {len(pad)} frames at 4K")
+    del meshless
+    torch.cuda.empty_cache()
+    total = {name: 0 for name in counters}
+    numbers = {"ms": ms, "peak_gib": {}, "flips_vs_bf16": {},
+               "flips_vs_f32": {}, "launches": {}}
+    for model in (2, 4):
+        mesh = card_mesh(1, model)
+        binarizer = ShardedBinarizer(random_weights(net_config)[1], mesh,
+                                     shard_spatial=True)
+        cases = [("scan", frames)] + ([("strip", strip)] if model == 4
+                                      else [])
+        for what, batch in cases:
+            rows = slab_rows(-(-batch.shape[1] // 32) * 32, model)
+            holding = sum(1 for r in rows if r)
+            binarizer.binarize_frames(batch[:1])
+            got, launches, peak = axis_counted(
+                counters, lambda: binarizer.binarize_frames(batch))
+            key = f"1x{model} {what}"
+            axis_gate(f"(c) height {key}", launches, holding, 1)
+            if what == "strip" and holding == model:
+                raise AssertionError("the strip left every shard rows")
+            vs_bf16 = flips(got, expected[what])
+            vs_f32 = flips(got, f32[what])
+            if vs_bf16[1] > AXIS_MAX_FLIPS_VS_BF16 or \
+                    vs_f32[1] > MAX_FLIP_RATE:
+                raise AssertionError(f"(c) {key} flip rates {vs_bf16}, "
+                                     f"{vs_f32}")
+            for name, count in launches.items():
+                total[name] += count
+            numbers["peak_gib"][key] = peak
+            numbers["flips_vs_bf16"][key] = vs_bf16
+            numbers["flips_vs_f32"][key] = vs_f32
+            numbers["launches"][key] = launches
+            log(f"model axis (c) height 1x{model}, {what} "
+                f"{len(batch)}x{batch.shape[1]}x{batch.shape[2]} (slab rows "
+                f"{rows}): vs meshless bf16 {vs_bf16[0]} pixels flipped "
+                f"({vs_bf16[1]:.2e}, bound {AXIS_MAX_FLIPS_VS_BF16}); vs "
+                f"plain f32 {vs_f32[0]} "
+                f"({vs_f32[1]:.2e}, bound {MAX_FLIP_RATE}); peak {peak:.2f} "
+                f"GiB; launches {launches}; on {card}")
+        ms[f"1x{model}"] = cuda_ms(lambda: sharded_forward(
+            mesh, binarizer._fns, pad), AXIS_REPS)
+        device_breakdown(lambda: sharded_forward(mesh, binarizer._fns, pad),
+                         f"model axis (c) height 1x{model}, {len(pad)} "
+                         f"frames at 4K")
+        del binarizer
+        torch.cuda.empty_cache()
+    log(f"model axis (c) ms a call of {len(frames)} frames "
+        f"{SCAN_WIDTH}x{padded} (CUDA events, mean of {AXIS_REPS}) "
+        f"{json.dumps(ms)}; on {card}")
+    return total, numbers
+
+
+def model_axis_cli_child(conf, mesh):
+    """Child: cli.binarize on ``conf`` with ``-mesh mesh`` in the world of
+    the LM_* env (one card a process); prints its launches."""
+    sys.path.insert(0, REPO)
+    from lecturemath_tpu_torch.cli import binarize
+    from lecturemath_tpu_torch.ops.conv7 import conv_same_nhwc
+    from lecturemath_tpu_torch.ops.postprocess import threshold_pack
+    from lecturemath_tpu_torch.pipeline.driver import PipelineDriver
+
+    memory_frames(PipelineDriver)
+    binarize.main(["binarize", conf, "-mesh", mesh])
+    print(json.dumps({"launches": {
+        "threshold_pack": threshold_pack.launches,
+        "conv_same_nhwc": conv_same_nhwc.launches}}), flush=True)
+    return 0
+
+
+def axis_two_cards(card):
+    """(d): cli.binarize -mesh 1x2 over two cards in-process, and in a
+    2-process NCCL world one card a process; both artifacts equal the
+    meshless CLI's."""
+    from lecturemath_tpu_torch.cli import binarize
+    from lecturemath_tpu_torch.parallel.launch import free_port
+    from lecturemath_tpu_torch.pipeline.driver import PipelineDriver
+
+    base = open(os.path.join(WORKSPACE, "staged.conf")).read()
+    confs = {}
+    for which in ("meshless", "cards", "world"):
+        confs[which] = os.path.join(WORKSPACE, f"axis_{which}.conf")
+        with open(confs[which], "w") as f:
+            f.write(base.replace(f"{WORKSPACE}/output",
+                                 f"{WORKSPACE}/axis_{which}"))
+    saved = PipelineDriver.frame_source
+    memory_frames(PipelineDriver)
+    try:
+        binarize.main(["binarize", confs["meshless"]])
+        binarize.main(["binarize", confs["cards"], "-mesh", "1x2"])
+    finally:
+        PipelineDriver.frame_source = saved
+    port = free_port()
+    results = child_results([start_child(
+        f"model_axis_cli_child({confs['world']!r}, '1x2')", world=2,
+        rank=rank, port=port, visible=str(rank)) for rank in range(2)],
+        "binarize -mesh 1x2, 2 processes")
+    artifact = os.path.join("temporal", "tempo_binary_smoke01.dat")
+    with open(os.path.join(WORKSPACE, "axis_meshless", artifact), "rb") as f:
+        single = f.read()
+    for which in ("cards", "world"):
+        with open(os.path.join(WORKSPACE, f"axis_{which}", artifact),
+                  "rb") as f:
+            if f.read() != single:
+                raise AssertionError(f"binarize -mesh 1x2 ({which}): the "
+                                     f"artifact differs from meshless")
+    log(f"model axis (d) on 2 cards: binarize -mesh 1x2 in-process and in "
+        f"a 2-process NCCL world write the meshless artifact; child "
+        f"launches {json.dumps([r['launches'] for r in results])}; on "
+        f"{card}")
+    return {"children": results}
+
+
+def phase_model_axis(conf, counters, summary, card):
+    """The model axis for inference on the card; returns (launch counts of
+    the path's gated runs, numbers)."""
+    import torch
+
+    from lecturemath_tpu_torch.models.fcn_lecturenet import FCNConfig
+
+    from lecturemath_tpu_torch.core.config import Config
+
+    t0 = time.perf_counter()
+    net_config = FCNConfig.from_config(Config.from_file(conf))
+    numbers = {}
+    numbers["k2_max_abs_err"], numbers["k1_max_err"] = axis_kernels(
+        net_config)
+    launches = {name: 0 for name in counters}
+    for name, step in (
+            ("channels_1x2", lambda: axis_channel_lecture(
+                conf, counters, summary, card)),
+            ("channels_2x2", lambda: axis_channel_four(
+                net_config, counters, card)),
+            ("height", lambda: axis_height(net_config, counters, card))):
+        counts, numbers[name] = step()
+        for key, count in counts.items():
+            launches[key] += count
+    if torch.cuda.device_count() >= 2:
+        numbers["two_cards"] = axis_two_cards(card)
+    else:
+        log(f"model axis (d): the 2-card checks (binarize -mesh 1x2 over 2 "
+            f"cards in-process, and in a 2-process NCCL world) were NOT "
+            f"run: this machine has {torch.cuda.device_count()} card")
+    numbers["wall_s"] = time.perf_counter() - t0
+    log(f"model axis: phase wall {numbers['wall_s']:.3f} s; launches "
+        f"{launches}; on {card}")
+    return launches, numbers
+
+
 def main():
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(REPO, "lecturemath_tpu_torch")):
@@ -4993,6 +5527,7 @@ def main():
     tooling_launches, tooling = empty()
     editors_launches, editors = empty()
     flagship_launches, flagship = empty()
+    axis_launches, axis = empty()
     try:
         conf, _ = make_workspace()
         launches, summary = run(
@@ -5024,6 +5559,9 @@ def main():
         flagship_launches, flagship = run(
             "14 flagship drive", lambda: phase_flagship(counters, card),
             empty())
+        axis_launches, axis = run(
+            "15 model axis",
+            lambda: phase_model_axis(conf, counters, summary, card), empty())
     except Exception:  # noqa: BLE001 — report every phase, then fail
         traceback.print_exc()
         failures.append("workspace")
@@ -5048,7 +5586,8 @@ def main():
                 "device_worker": worker_launches.get(name, 0),
                 "tooling": tooling_launches.get(name, 0),
                 "editors": editors_launches.get(name, 0),
-                "flagship": flagship_launches.get(name, 0)}
+                "flagship": flagship_launches.get(name, 0),
+                "model_axis": axis_launches.get(name, 0)}
     for key in SERVING_KERNELS:
         if key in records and serving:
             device_us = {bucket: numbers["device_us"]
@@ -5083,6 +5622,10 @@ def main():
     if flagship:
         log(f"flagship drive on {card}: " + json.dumps(
             {"steps": flagship["steps"], "phase_s": flagship["phase_s"]}))
+    if axis:
+        log(f"model axis on {card}: " + json.dumps(
+            {key: value for key, value in axis.items()
+             if key != "two_cards"}))
     log(f"express {summary.get('fps', 0):.2f} fps on {card}")
     walls["all"] = time.perf_counter() - t_start
     log(f"phase walls s on {card}: "

@@ -1,14 +1,17 @@
 """Stage 01 CLI — batched binarization of lecture videos on the card.
 
 Usage: python -m lecturemath_tpu_torch.cli.binarize <config> [-l lecture]
-[-d dataset] [-mesh D] [-device cpu]
+[-d dataset] [-mesh D|DxM] [-device cpu]
 (reference equivalent: pre_ST3D_v3.0_01_binarize.py.) Stage 01 runs on the
 card unless ``-device cpu`` is given; without a card it raises. ``-mesh D``
 / the TPU_MESH config key shard the frames over D devices (one replica of
-the model a card; on the CPU, D replicas); under the LM_COORDINATOR /
-LM_NUM_PROCESSES / LM_PROCESS_ID contract the same CLI on every host joins
-one world and the mesh spans every process's cards. ``-mesh DxM`` with
-M > 1 raises (ROADMAP queue 1, item 10b).
+the model a card; on the CPU, D replicas); ``-mesh DxM`` also shards the
+model's channels over M devices of each data position (the model axis,
+parallel/model_axis.py; D·M cards, or D·M CPU shards with ``-device
+cpu``). Under the LM_COORDINATOR / LM_NUM_PROCESSES / LM_PROCESS_ID
+contract the same CLI on every host joins one world and the mesh spans
+every process's devices. Training over the model axis is not ported yet
+(ROADMAP queue 1, item 10b).
 """
 
 import sys

@@ -3,12 +3,14 @@ inter-stage PNG pickle relay. Stage 01 runs on the card unless
 ``-device cpu`` is given.
 
 Usage: python -m lecturemath_tpu_torch.cli.run_pipeline <config>
-[-l lecture] [-d dataset] [-shard i/n] [-save 1] [-mesh D] [-device cpu]
+[-l lecture] [-d dataset] [-shard i/n] [-save 1] [-mesh D|DxM] [-device cpu]
 
-``-mesh D`` / TPU_MESH shard stage 01's frames over D devices, and the
-LM_* env contract joins the processes of several hosts, as for the stage-01
-CLI (cli/binarize.py); ``-mesh DxM`` with M > 1 raises (ROADMAP queue 1,
-item 10b). Without a mesh, DEVICE_WORKER_RECYCLE_MB > 0 runs stage 01 in a
+``-mesh D`` / TPU_MESH shard stage 01's frames over D devices, ``-mesh
+DxM`` also the model's channels over M devices of each data position, and
+the LM_* env contract joins the processes of several hosts, as for the
+stage-01 CLI (cli/binarize.py); training over the model axis is not
+ported yet (ROADMAP queue 1, item 10b). Without a mesh,
+DEVICE_WORKER_RECYCLE_MB > 0 runs stage 01 in a
 recycled device worker process (pipeline/device_worker.py), one shared by
 every lecture of the run.
 """

@@ -126,6 +126,49 @@ def flax_variables_from_state_dict(state_dict: Dict[str, torch.Tensor]
     return {"params": params, "batch_stats": stats}
 
 
+def state_dict_specs_from_flax(param_specs: Dict[str, Any]
+                               ) -> Dict[str, tuple]:
+    """A tree shaped like the JAX package's ``params``, of partition specs
+    (tuples of axis names or None, as ``jax.sharding.PartitionSpec`` is) ->
+    the spec of each port ``state_dict`` key it names, in torch axis order
+    (a kernel's spec permuted as the kernel is), ``()`` for a replicated
+    tensor: the JAX package's ``params_pspec_tree`` in the port's terms.
+    BatchNorm running statistics and ``num_batches_tracked`` have no flax
+    parameter and no entry."""
+    out: Dict[str, tuple] = {}
+
+    def norm(spec) -> tuple:
+        spec = tuple(spec)
+        return spec if any(axis is not None for axis in spec) else ()
+
+    def conv(torch_name, tree):
+        kernel = tuple(tree["kernel"])
+        if kernel:
+            kernel = tuple(kernel[axis] for axis in _TO_TORCH)
+        out[f"{torch_name}.weight"] = norm(kernel)
+        out[f"{torch_name}.bias"] = norm(tree["bias"])
+
+    def bn(torch_name, tree):
+        out[f"{torch_name}.weight"] = norm(tree["scale"])
+        out[f"{torch_name}.bias"] = norm(tree["bias"])
+
+    for flax_name, torch_name in _BLOCKS:
+        if flax_name in param_specs:
+            conv(f"{torch_name}.0", param_specs[flax_name]["conv"])
+            bn(f"{torch_name}.1", param_specs[flax_name]["bn"])
+    for i in range(1, 6):
+        up = param_specs[f"up_{i}"]
+        conv(f"transposed_conv_{i}", up["deconv"])
+        bn(f"upsample_block_{i}.0", up["bn"])
+        conv(f"conv_up_block_{i}.0", up["conv_block"]["conv"])
+        bn(f"conv_up_block_{i}.1", up["conv_block"]["bn"])
+    for conv_name, bn_name, torch_name in _HEADS:
+        if conv_name in param_specs:
+            conv(f"{torch_name}.0", param_specs[conv_name])
+            bn(f"{torch_name}.1", param_specs[bn_name])
+    return out
+
+
 # ---------------------------------------------------------------------------
 # flax's msgpack format, without the msgpack package
 # ---------------------------------------------------------------------------

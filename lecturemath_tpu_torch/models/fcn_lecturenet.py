@@ -50,7 +50,8 @@ from ..utils.image import rgb_to_yuv420
 
 __all__ = ["FCNConfig", "FCNLectureNet", "fold_batch_norms", "fold_model",
            "init_weights", "prepare_images", "pad_to_multiple",
-           "make_binarizer", "make_packed_binarizer", "pack_bits",
+           "make_binarizer", "make_packed_binarizer", "model_input",
+           "probability_u8", "pack_bits",
            "unpack_bits_host", "yuv420_to_rgb", "rgb_to_yuv420_host",
            "device_halve"]
 
@@ -235,23 +236,58 @@ class FCNLectureNet(nn.Module):
             y = activation(y)
         return y.to(dt)
 
-    def _block(self, name: str, x: torch.Tensor) -> torch.Tensor:
+    def _block(self, name: str, x: torch.Tensor,
+               halo: bool = False) -> torch.Tensor:
         """Conv block ``name`` (conv, BN, optional activation) on ``x``,
-        with the conv's weights cast to ``x``'s dtype."""
+        with the conv's weights cast to ``x``'s dtype. ``halo``: ``x``
+        carries the conv's k // 2 rows of its neighbours above and below
+        (a height slab of the model axis), so the conv pads only the width
+        and returns the rows between them."""
         block = getattr(self, name)
         conv, dt = block[0], x.dtype
-        y = conv._conv_forward(x, conv.weight.to(dt), conv.bias.to(dt))
+        if halo:
+            y = F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt),
+                         conv.stride, (0, conv.padding[1]), conv.dilation,
+                         conv.groups)
+        else:
+            y = conv._conv_forward(x, conv.weight.to(dt), conv.bias.to(dt))
         return self._bn_act(block[1], y, block[2] if len(block) > 2 else None)
 
     def _up(self, level: int, x: torch.Tensor) -> torch.Tensor:
         """Transposed conv (2x2, stride 2) + BN + GELU of up block
         ``level``."""
+        return self._up_act(level, self._deconv(level, x))
+
+    def _deconv(self, level: int, x: torch.Tensor,
+                bias: bool = True) -> torch.Tensor:
+        """The transposed conv of up block ``level`` on ``x``, with its bias
+        unless ``bias`` is False (the model axis adds it after summing the
+        shards' partial products)."""
         deconv = getattr(self, f"transposed_conv_{level}")
-        up = getattr(self, f"upsample_block_{level}")
         dt = x.dtype
-        y = F.conv_transpose2d(x, deconv.weight.to(dt), deconv.bias.to(dt),
-                               stride=2)
+        return F.conv_transpose2d(x, deconv.weight.to(dt),
+                                  deconv.bias.to(dt) if bias else None,
+                                  stride=2)
+
+    def _up_act(self, level: int, y: torch.Tensor,
+                bias: bool = False) -> torch.Tensor:
+        """BN + GELU of up block ``level`` on its transposed conv's output
+        ``y``, adding the conv's bias first when ``bias``."""
+        if bias:
+            deconv = getattr(self, f"transposed_conv_{level}")
+            y = y + deconv.bias.to(y.dtype)[:, None, None]
+        up = getattr(self, f"upsample_block_{level}")
         return self._bn_act(up[0], y, up[1])
+
+    @staticmethod
+    def _pool(x: torch.Tensor) -> torch.Tensor:
+        return F.max_pool2d(x, 2, 2)
+
+    @staticmethod
+    def _map(fn: Callable, *xs):
+        """``fn`` on the layer inputs ``xs``: one tensor each here; the
+        model axis's layers (parallel/model_axis.py) map over shards."""
+        return fn(*xs)
 
     def _head(self, name: str, x: torch.Tensor, gelu: bool,
               out_dtype: torch.dtype,
@@ -303,49 +339,64 @@ class FCNLectureNet(nn.Module):
         get_batch_mid_block_features, FCN_lecturenet.py:213-258), 'diff' ->
         (diff_img, decoder features) (reference get_batch_diff_images,
         :325-352). With ``reconstruction_mode``, 'full' returns rec only."""
+        return self.network(self, x0, mode)
+
+    def network(self, layers, x0, mode: str = "full"):
+        """The network, the one description of it, over ``layers``: this
+        model, or the layers of a mesh's model axis
+        (``parallel/model_axis.py``), whose values are lists of the shards'
+        tensors. ``layers`` runs the conv blocks (``_block``), up blocks
+        (``_up``), heads (``_head``) and pools (``_pool``), and ``_map``
+        applies the element-wise steps."""
         if mode not in ("full", "encode", "diff"):
             raise ValueError(f"unknown mode {mode!r}")
         dt = self.compute_dtype
-        x = x0.to(dt)
+        each = layers._map
+        x = each(lambda t: t.to(dt), x0)
 
         skips = []
         for level in range(1, 6):
-            pre = self._block(f"conv_down_block_{level}", x)
+            pre = layers._block(f"conv_down_block_{level}", x)
             skips.append(pre)
-            x = F.max_pool2d(pre, 2, 2)
-        x = self._block("mid_block", x)
+            x = layers._pool(pre)
+        x = layers._block("mid_block", x)
         if mode == "encode":
-            return x.float()
+            return each(lambda t: t.float(), x)
 
         for level in range(5, 0, -1):
-            skip = skips[level - 1]
-            x = self._up(level, x)
-            # crop to the skip (odd encoder sizes), as the reference does
-            # with ConvTranspose2d(output_size=...)
-            x = x[:, :, :skip.shape[2], :skip.shape[3]]
-            x = self._block(f"conv_up_block_{level}",
-                            torch.cat([x, skip], dim=1))
+            x = layers._up(level, x)
+            x = layers._block(f"conv_up_block_{level}",
+                              each(_crop_cat, x, skips[level - 1]))
         x_up1 = x
 
-        rec = self._block("conv_reconstruct", x_up1)
+        rec = layers._block("conv_reconstruct", x_up1)
         if self.reconstruction_mode:
             if mode == "full":
                 return rec
             raise ValueError("a reconstruction-mode model has no text head")
 
-        text_logits = self._head("conv_text_mask_out", x_up1, False,
-                                 torch.float32)
-        diff = (x0.to(dt) - rec) * torch.sigmoid(text_logits).to(dt)
+        text_logits = layers._head("conv_text_mask_out", x_up1, False,
+                                   torch.float32)
+        diff = each(lambda a, r, t: (a.to(dt) - r) * torch.sigmoid(t).to(dt),
+                    x0, rec, text_logits)
         if mode == "diff":
-            return diff.float(), x_up1.float()
+            return each(lambda d, u: (d.float(), u.float()), diff, x_up1)
 
         # channels_last once: the three heads each read diff beside a
         # feature map
-        diff = diff.contiguous(memory_format=torch.channels_last)
-        h = self._head("conv_pixels_1", diff, True, dt, x_up1)
-        h = self._head("conv_pixels_2", diff, True, dt, h)
-        bin_logits = self._head("conv_out", diff, False, torch.float32, h)
+        diff = each(lambda d: d.contiguous(memory_format=torch.channels_last),
+                    diff)
+        h = layers._head("conv_pixels_1", diff, True, dt, x_up1)
+        h = layers._head("conv_pixels_2", diff, True, dt, h)
+        bin_logits = layers._head("conv_out", diff, False, torch.float32, h)
         return bin_logits, text_logits, rec
+
+
+def _crop_cat(x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+    """An up block's output cropped to its skip (odd encoder sizes), as the
+    reference does with ConvTranspose2d(output_size=...), then the skip
+    concatenated after it."""
+    return torch.cat([x[:, :, :skip.shape[2], :skip.shape[3]], skip], dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -447,30 +498,39 @@ def _to_model_input(x_nhwc: torch.Tensor) -> torch.Tensor:
 
 
 def make_binarizer(model: FCNLectureNet, force_binary: bool = True,
-                   threshold: int = 128):
+                   threshold: int = 128, forward: Optional[Callable] = None):
     """Batch binarizer: uint8 RGB [B,H,W,3] (on the model's device) -> uint8
     binary [B,H,W] (plus text mask and reconstruction).
 
     Mirrors reference FCN_LectureNet.binarize (FCN_lecturenet.py:430-505):
-    sigmoid, x255, hard threshold at 128 -> {0, 255}."""
+    sigmoid, x255, hard threshold at 128 -> {0, 255}. ``forward`` (default
+    ``model``) maps the model input to (bin_logits, text_logits, rec): the
+    mesh's model axis passes its sharded network."""
+    forward = forward or model
 
     @torch.no_grad()
     def binarize(rgb_uint8: torch.Tensor):
-        x, (h, w) = pad_to_multiple(prepare_images(rgb_uint8))
-        bin_logits, text_logits, rec = model(_to_model_input(x))
-        bin_prob = torch.sigmoid(bin_logits[:, 0].float())
-        text_prob = torch.sigmoid(text_logits[:, 0].float())
-        bin_u8 = (bin_prob * 255.0).to(torch.uint8)
-        text_u8 = (text_prob * 255.0).to(torch.uint8)
-        if force_binary:
-            bin_u8 = torch.where(bin_u8 >= threshold, 255, 0).to(torch.uint8)
-            text_u8 = torch.where(text_u8 >= threshold, 255,
-                                  0).to(torch.uint8)
+        x, (h, w) = model_input(rgb_uint8)
+        bin_logits, text_logits, rec = forward(x)
+        bin_u8 = probability_u8(bin_logits[:, 0],
+                                threshold if force_binary else None)
+        text_u8 = probability_u8(text_logits[:, 0],
+                                 threshold if force_binary else None)
         rec_u8 = (rec.float() * 0.5 + 0.5) * 255.0
         rec_u8 = rec_u8.clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1)
         return bin_u8[:, :h, :w], text_u8[:, :h, :w], rec_u8[:, :h, :w]
 
     return binarize
+
+
+def probability_u8(logits: torch.Tensor,
+                   threshold: Optional[int] = None) -> torch.Tensor:
+    """``sigmoid(logits) * 255`` truncated to uint8, or with ``threshold``
+    the {0, 255} map of ``>= threshold``."""
+    out = (torch.sigmoid(logits.float()) * 255.0).to(torch.uint8)
+    if threshold is not None:
+        out = torch.where(out >= threshold, 255, 0).to(torch.uint8)
+    return out
 
 
 def yuv420_to_rgb(planes: torch.Tensor) -> torch.Tensor:
@@ -522,27 +582,35 @@ def device_halve(rgb_uint8: torch.Tensor, halvings: int) -> torch.Tensor:
     return rgb_uint8
 
 
+def model_input(frames_uint8: torch.Tensor, input_format: str = "rgb",
+                pre_halvings: int = 0):
+    """uint8 frames on the device -> (the model's input (B, 3, Hp, Wp) in
+    [-1, 1], channels_last, edge-padded to multiples of 32; the frames'
+    (h, w)). ``input_format='yuv420'`` takes uint8 I420 planes
+    [B, H*3/2, W] and reconstructs RGB on the device; ``pre_halvings``
+    box-halves the frames on the device first."""
+    rgb_uint8 = (yuv420_to_rgb(frames_uint8) if input_format == "yuv420"
+                 else frames_uint8)
+    if pre_halvings:
+        rgb_uint8 = device_halve(rgb_uint8, pre_halvings)
+    x, size = pad_to_multiple(prepare_images(rgb_uint8))
+    return _to_model_input(x), size
+
+
 def make_packed_binarizer(model: FCNLectureNet, threshold: int = 128,
-                          input_format: str = "rgb", pre_halvings: int = 0):
+                          input_format: str = "rgb", pre_halvings: int = 0,
+                          forward: Optional[Callable] = None):
     """Like make_binarizer(force_binary=True) but returns only the packed
     binary bitmap [B, h, ceil(w/8)] (kernel K1 on the card); unpack on the
-    host with unpack_bits_host.
-
-    ``input_format='yuv420'`` takes uint8 I420 planes [B, H*3/2, W] and
-    reconstructs RGB on the device. ``pre_halvings`` box-halves the frames
-    on the device before the net."""
+    host with unpack_bits_host. ``input_format`` and ``pre_halvings`` as
+    for ``model_input``; ``forward`` as for ``make_binarizer``."""
     pack = threshold_pack_plain if model.plain else threshold_pack
+    forward = forward or model
 
     @torch.no_grad()
     def binarize(frames_uint8: torch.Tensor) -> torch.Tensor:
-        if input_format == "yuv420":
-            rgb_uint8 = yuv420_to_rgb(frames_uint8)
-        else:
-            rgb_uint8 = frames_uint8
-        if pre_halvings:
-            rgb_uint8 = device_halve(rgb_uint8, pre_halvings)
-        x, (h, w) = pad_to_multiple(prepare_images(rgb_uint8))
-        bin_logits, _, _ = model(_to_model_input(x))
+        x, (h, w) = model_input(frames_uint8, input_format, pre_halvings)
+        bin_logits, _, _ = forward(x)
         return pack(bin_logits[:, 0].float().contiguous(), h, w, threshold)
 
     return binarize

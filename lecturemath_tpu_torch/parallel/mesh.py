@@ -1,20 +1,23 @@
 """Device meshes for multi-card and multi-process runs.
 
-The JAX package shards batches over a ``data`` axis and conv channels over
-a ``model`` axis of a device mesh. The port has the data axis: frames of a
-lecture are independent through the FCN forward, and training is
-data-parallel. A ``Mesh`` here is the list of devices in process order with
-``shape = {"data": D, "model": 1}``; each process drives the cards it sees
+As in the JAX package, a mesh has a ``data`` axis, over which batches
+shard, and a ``model`` axis, over which stage-01 inference shards the
+convs' channels or the frames' height (``parallel/model_axis.py``). A
+``Mesh`` here is the list of devices in process order, laid out row-major
+as (data, model): mesh device i sits at data position ``i // M`` and model
+index ``i % M``. Each process drives the cards it sees
 (``torch.cuda.device_count()``; a launcher that wants one card a process
 sets ``CUDA_VISIBLE_DEVICES``), and processes join one world through the JAX
 package's env contract (``LM_COORDINATOR``, ``LM_NUM_PROCESSES``,
-``LM_PROCESS_ID``): NCCL between cards, gloo on the CPU. The model axis
-(channel sharding, spatial sharding with halo exchanges) is not ported yet
-and raises: ROADMAP queue 1, item 10b.
+``LM_PROCESS_ID``): NCCL between cards, gloo on the CPU. Where a model
+group spans processes, ``make_mesh`` creates the sub-groups its collectives
+run in. Training over the model axis is not ported yet and raises: ROADMAP
+queue 1, item 10b.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 import os
 from dataclasses import dataclass
@@ -22,9 +25,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-MODEL_AXIS_NOT_PORTED = ("sharding over the mesh 'model' axis (-mesh DxM "
-                         "with M > 1) is not ported yet (ROADMAP queue 1, "
-                         "item 10b)")
+MODEL_AXIS_NOT_PORTED = ("training over the mesh 'model' axis (-mesh DxM "
+                         "with M > 1) is not ported yet; inference is "
+                         "(ROADMAP queue 1, item 10b)")
 
 
 @dataclass(frozen=True)
@@ -140,6 +143,7 @@ def shutdown_distributed() -> bool:
     if not (dist.is_available() and dist.is_initialized()):
         return False
     dist.barrier()
+    _SUBGROUPS.clear()
     dist.destroy_process_group()
     return True
 
@@ -150,18 +154,30 @@ def shutdown_distributed() -> bool:
 class Mesh:
     """``devices``: the mesh's (process, device) pairs in process order;
     ``local_devices``: this process's devices among them; ``device_count``:
-    the devices of every process, which the mesh may use only part of."""
+    the devices of every process, which the mesh may use only part of.
+    ``model_group``: the ``torch.distributed`` group of the processes that
+    share this process's model group, where one spans processes (else
+    None); ``data_group``: the group a batch's rows are gathered over (None:
+    the world)."""
     shape: Dict[str, int]
     devices: Tuple[Tuple[int, torch.device], ...]
     local_devices: Tuple[torch.device, ...]
     rank: int
     world_size: int
     device_count: int
+    model_group: Any = None
+    data_group: Any = None
 
     @property
     def device(self) -> torch.device:
         """The device this process's collectives and results live on."""
         return self.local_devices[0]
+
+    @property
+    def first_local_index(self) -> int:
+        """The mesh index of this process's first device."""
+        return next(i for i, (p, _) in enumerate(self.devices)
+                    if p == self.rank)
 
 
 def mesh_devices(device: Union[None, str, torch.device],
@@ -183,10 +199,10 @@ def make_mesh(spec: MeshSpec = MeshSpec(),
     """The mesh ``spec`` asks for over every process's devices, this
     process offering ``devices`` (default: the cards it sees). Like the JAX
     package's, it takes the first D*M devices of the world in process
-    order. Raises for a model axis (item 10b) and for more devices than
-    there are."""
-    if spec.model > 1:
-        raise NotImplementedError(MODEL_AXIS_NOT_PORTED)
+    order, row-major as (data, model). Raises for more devices than there
+    are, and for a model axis whose groups would split a process's devices
+    unevenly. In a world of several processes every process must call it
+    (it gathers the device counts and creates the sub-groups)."""
     local = list(devices) if devices is not None else mesh_devices(None,
                                                                    spec)
     if not local:
@@ -202,10 +218,52 @@ def make_mesh(spec: MeshSpec = MeshSpec(),
                 for process, count in enumerate(counts)
                 for k in range(count)]
     chosen = tuple(everyone[:spec.data * spec.model])
+    groups = _model_axis_groups(spec, chosen, world)
     return Mesh(shape={"data": spec.data, "model": spec.model},
                 devices=chosen,
                 local_devices=tuple(d for p, d in chosen if p == rank),
-                rank=rank, world_size=world, device_count=sum(counts))
+                rank=rank, world_size=world, device_count=sum(counts),
+                model_group=groups[0], data_group=groups[1])
+
+
+def _model_axis_groups(spec: MeshSpec, chosen, world: int):
+    """(model group, data group) of this process for a model axis whose
+    groups span processes; (None, None) otherwise. A process's devices
+    must hold whole model groups, or an equal part of one."""
+    model = spec.model
+    if model <= 1 or world <= 1:
+        return None, None
+    held = [sum(1 for p, _ in chosen if p == process)
+            for process in range(world)]
+    per = held[0]
+    if any(n != per for n in held) or not (per % model == 0
+                                           or model % per == 0):
+        raise ValueError(
+            f"mesh {spec.data}x{model} over {world} processes holding "
+            f"{held} of its devices: the model axis needs each process to "
+            f"hold the same number of devices, whole model groups or an "
+            f"equal part of one")
+    span = max(1, model // per)   # processes a model group spans
+    if span == 1:
+        return None, None
+    import torch.distributed as dist
+
+    # creating a group is collective and each holds communicators, so a
+    # world makes the pair of a span once, however often the mesh is made
+    key = (id(dist.group.WORLD), world, span)
+    if key not in _SUBGROUPS:
+        model_ranks = [list(range(g * span, (g + 1) * span))
+                       for g in range(world // span)]
+        data_ranks = [list(range(i, world, span)) for i in range(span)]
+        _SUBGROUPS[key] = (
+            dist.new_subgroups_by_enumeration(model_ranks)[0],
+            dist.new_subgroups_by_enumeration(data_ranks)[0])
+    return _SUBGROUPS[key]
+
+
+# (world, world size, processes a model group spans) -> (model group, data
+# group); emptied when the world is left
+_SUBGROUPS: Dict[Tuple[int, int, int], Tuple[Any, Any]] = {}
 
 
 def _gather_counts(count: int, device: torch.device) -> List[int]:
@@ -220,15 +278,25 @@ def _gather_counts(count: int, device: torch.device) -> List[int]:
 
 
 def check_mesh(mesh: Optional[Mesh]) -> None:
-    """Raise for a mesh whose model axis is sharded (item 10b), or one
-    that leaves this process no device."""
+    """Raise for a mesh that leaves this process no device."""
     if mesh is None:
         return
-    if mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(MODEL_AXIS_NOT_PORTED)
     if not mesh.local_devices:
         raise ValueError(f"process {mesh.rank} owns no device of the "
                          f"{mesh.shape['data']}x{mesh.shape['model']} mesh")
+
+
+def local_model_groups(mesh: Mesh) -> List[List[Tuple[int, int]]]:
+    """This process's devices by the data position they serve, in order:
+    for each, the (model index, local device index) of every one of them.
+    On a data-only mesh, one device each."""
+    model = mesh.shape.get("model", 1)
+    first = mesh.first_local_index
+    groups: Dict[int, List[Tuple[int, int]]] = {}
+    for k in range(len(mesh.local_devices)):
+        groups.setdefault((first + k) // model, []).append(
+            ((first + k) % model, k))
+    return [groups[position] for position in sorted(groups)]
 
 
 def local_row_slice(mesh: Mesh, n_rows: int) -> slice:
@@ -297,44 +365,101 @@ def shard_batch(mesh: Mesh, batch: Any) -> List[Any]:
 
 def replicate(mesh: Mesh, module: torch.nn.Module) -> List[torch.nn.Module]:
     """One copy of ``module`` on each local device, in order: the first is
-    ``module`` itself moved there, the others deep copies."""
-    import copy
-
+    ``module`` itself moved there, the others deep copies. On a model axis
+    each carries its device's ``model_index`` and the ``model_size`` (the
+    height-sharded path holds one whole replica a shard)."""
+    model = mesh.shape.get("model", 1)
+    first = mesh.first_local_index
     replicas = []
     for k, device in enumerate(mesh.local_devices):
-        replicas.append((module if k == 0 else copy.deepcopy(module)).to(
-            device))
+        replica = (module if k == 0 else copy.deepcopy(module)).to(device)
+        if model > 1:
+            replica.model_index, replica.model_size = (first + k) % model, \
+                model
+        replicas.append(replica)
     return replicas
 
 
 def params_pspec_tree(params: Dict[str, torch.Tensor],
                       mesh: Mesh) -> Dict[str, tuple]:
-    """Partition spec of each parameter: replicated (``()``) on a data-only
-    mesh. Channel sharding over 'model' raises (item 10b)."""
-    check_mesh(mesh)
-    return {key: () for key in params}
+    """Partition spec of each tensor of a ``state_dict``, in torch axis
+    order: ``("model", None, ...)`` where its axis 0 shards over the mesh's
+    'model' axis, ``()`` where it is replicated (always on a data-only
+    mesh). The JAX package's rule (its ``params_pspec_tree``): a flax
+    parameter shards its trailing axis where that divides by M and is at
+    least M. ``models/convert.py`` maps flax's trailing axis to torch axis
+    0 for every tensor: a conv's output channels, but a transposed conv's
+    INPUT channels (flax's ConvTranspose(transpose_kernel) kernel is
+    (kh, kw, O, I)), while its bias shards on the outputs. The BatchNorms'
+    running statistics follow their channels here; the JAX package keeps
+    them replicated, which in eval mode is the same function."""
+    model = mesh.shape.get("model", 1)
+
+    def spec(value: torch.Tensor) -> tuple:
+        shape = tuple(value.shape)
+        if model > 1 and shape and shape[0] % model == 0 \
+                and shape[0] >= model:
+            return ("model",) + (None,) * (len(shape) - 1)
+        return ()
+
+    return {key: spec(value) for key, value in params.items()}
 
 
 def shard_params(mesh: Mesh, module: torch.nn.Module
                  ) -> List[torch.nn.Module]:
-    """Place a model on the mesh: replicated over 'data'. Channel sharding
-    over 'model' raises (item 10b)."""
-    check_mesh(mesh)
-    return replicate(mesh, module)
+    """Place a model on the mesh: one module a local device, replicated over
+    'data' (``replicate``) and, on a model axis, holding its device's slice
+    of every tensor ``params_pspec_tree`` shards (replicated tensors
+    copied). Each shard carries ``model_index``, ``model_size`` and the
+    ``model_specs`` it was cut by."""
+    model = mesh.shape.get("model", 1)
+    if model <= 1:
+        return replicate(mesh, module)
+    state = dict(module.named_parameters())
+    state.update(module.named_buffers())
+    specs = params_pspec_tree(state, mesh)
+    first = mesh.first_local_index
+    shards = []
+    for k, device in enumerate(mesh.local_devices):
+        index = (first + k) % model
+        memo = {}
+        for name, value in state.items():
+            part = value.detach()
+            if specs[name]:
+                size = part.shape[0] // model
+                part = part[index * size:(index + 1) * size]
+            part = part.to(device).clone()
+            memo[id(value)] = (torch.nn.Parameter(
+                part, requires_grad=value.requires_grad)
+                if isinstance(value, torch.nn.Parameter) else part)
+        # the deep copy takes each tensor's slice from the memo
+        shard = copy.deepcopy(module, memo)
+        if hasattr(shard, "_head_packs"):
+            shard._head_packs = {}
+        shard.model_index, shard.model_size = index, model
+        shard.model_specs = specs
+        shards.append(shard)
+    return shards
 
 
 def warmup_collectives(mesh: Mesh) -> None:
-    """Create the world's communicators up front with one small all_reduce
-    and a barrier, so that no process meets its first collective while a
-    peer is still building a model or compiling a kernel. No-op in a world
-    of one process that has no process group."""
+    """Create the world's communicators, and those of the mesh's model and
+    data groups, up front with one small all_reduce in each and a barrier,
+    so that no process meets its first collective while a peer is still
+    building a model or compiling a kernel. No-op in a world of one process
+    that has no process group."""
     import torch.distributed as dist
 
     if not (dist.is_available() and dist.is_initialized()):
         return
-    probe = torch.ones(1, device=mesh.device)
-    dist.all_reduce(probe)
+    groups = [None] + [group for group in (mesh.model_group,
+                                            mesh.data_group)
+                       if group is not None]
+    for group in groups:
+        probe = torch.ones(1, device=mesh.device)
+        dist.all_reduce(probe, group=group)
+        expected = dist.get_world_size(group)
+        if int(probe.item()) != expected:
+            raise RuntimeError(f"warm-up all_reduce gave {probe.item()}, "
+                               f"expected {expected}")
     dist.barrier()
-    if int(probe.item()) != mesh.world_size:
-        raise RuntimeError(f"warm-up all_reduce gave {probe.item()}, "
-                           f"expected {mesh.world_size}")

@@ -9,7 +9,10 @@ host unpacks it when the copy's CUDA event has fired.
 With a mesh (``-mesh D``), each batch splits by rows over one replica of
 the model per local card, and across the processes of a world, each
 process receiving every frame (parallel/inference.py); the output is the
-same as without one.
+same as without one. On a model axis (``-mesh DxM``) each data position's
+M devices hold the channel shards of the model, as the JAX package's
+Binarizer lays them out (parallel/model_axis.py); the output equals the
+meshless one up to the summation order of the sharded layers.
 
 Polarity: the raw model output follows the training GT (ink=0 on a 255
 background); the stage artifact is inverted to ink=255 exactly like the
@@ -31,10 +34,9 @@ from ..core.config import Config
 from ..core.device import resolve_device
 from ..models.convert import load_checkpoint
 from ..models.fcn_lecturenet import (FCNConfig, FCNLectureNet, fold_model,
-                                     init_weights, make_binarizer,
-                                     make_packed_binarizer, unpack_bits_host)
-from ..parallel.inference import pad_rows, sharded_forward
-from ..parallel.mesh import check_mesh, process_count, replicate
+                                     init_weights, unpack_bits_host)
+from ..parallel.inference import group_binarizers, pad_rows, sharded_forward
+from ..parallel.mesh import check_mesh, process_count, shard_params
 from ..utils.image import halve_lanczos, resize_area, resize_nearest
 from .video import VideoFrameSource
 
@@ -298,12 +300,14 @@ class Binarizer:
         rows is a collective and must keep the processes' program order.
         Config: STREAM_ASYNC_DRAIN.
 
-        ``mesh`` (parallel/mesh.py ``make_mesh``; data axis only): one
-        replica of the model per local device of the mesh, which replaces
-        ``device``; each batch's rows split over them and over the world's
-        processes (every process passes the same frames and receives all
-        of them). ``batch_size`` rounds up to a multiple of the data axis,
-        a ragged batch is padded with its last frame and cropped back."""
+        ``mesh`` (parallel/mesh.py ``make_mesh``): one replica of the model
+        per local device of the mesh, which replaces ``device``; each
+        batch's rows split over them and over the world's processes (every
+        process passes the same frames and receives all of them). On a
+        ``DxM`` mesh with M > 1 each data position's M devices hold the
+        model's channel shards instead (``shard_params``, after the fold).
+        ``batch_size`` rounds up to a multiple of the data axis only, a
+        ragged batch is padded with its last frame and cropped back."""
         if mesh is not None:
             check_mesh(mesh)
             if device is not None and \
@@ -317,7 +321,7 @@ class Binarizer:
             model = fold_model(model)
         model = model.to(device=self.device, dtype=dtype or model.dtype,
                          memory_format=torch.channels_last).eval()
-        self._replicas = (replicate(mesh, model) if mesh is not None
+        self._replicas = (shard_params(mesh, model) if mesh is not None
                           else [model])
         for replica in self._replicas:
             device_of = replica.mid_block[0].weight.device
@@ -336,12 +340,9 @@ class Binarizer:
         if pipeline_depth is None:
             pipeline_depth = 2
         self.pipeline_depth = max(1, pipeline_depth)
-        self._binarize_fns = [make_binarizer(replica,
-                                             force_binary=force_binary,
-                                             threshold=threshold)
-                              for replica in self._replicas]
+        self._binarize_fns = self._group_fns(packed=False)
         self._binarize_fn = self._binarize_fns[0]
-        # the binary output alone, of every replica
+        # the binary output alone, of every model group
         self._binary_fns = [lambda x, fn=fn: fn(x)[0]
                             for fn in self._binarize_fns]
         if not force_binary:
@@ -368,19 +369,26 @@ class Binarizer:
         if force_binary:
             self._make_packed(upload_format, 0)
 
+    def _group_fns(self, **kwargs):
+        """``group_binarizers`` of every local model group: one replica
+        each on a data-only mesh, channel shards on a model axis."""
+        return group_binarizers(self.mesh, self._replicas, "channel",
+                                threshold=self.threshold,
+                                force_binary=self.force_binary, **kwargs)
+
     def _make_packed(self, input_format: str, pre_halvings: int) -> None:
-        """The packed batch function of every replica (``_packed_fn``: the
-        first's)."""
-        self._packed_fns = [make_packed_binarizer(
-            replica, threshold=self.threshold, input_format=input_format,
-            pre_halvings=pre_halvings) for replica in self._replicas]
+        """The packed batch function of every model group
+        (``_packed_fn``: the first's)."""
+        self._packed_fns = self._group_fns(packed=True,
+                                           input_format=input_format,
+                                           pre_halvings=pre_halvings)
         self._packed_fn = self._packed_fns[0]
         self._packed_fn_key = (input_format, pre_halvings)
 
     def _run(self, fns, frames: np.ndarray) -> torch.Tensor:
-        """The batch function ``fns[k]`` of replica k over ``frames`` (rows
-        a multiple of the data axis under a mesh): the output of every row,
-        on ``self.device``."""
+        """The batch function ``fns[g]`` of model group g over ``frames``
+        (rows a multiple of the data axis under a mesh): the output of
+        every row, on ``self.device``."""
         if self.mesh is None:
             return fns[0](self._to_device(frames))
         return sharded_forward(self.mesh, fns, frames)
@@ -617,7 +625,9 @@ class Binarizer:
             print(f"Stage 01: batch size {batch_size} for {mw}x{mh} frames "
                   f"on {self.device}"
                   + ("" if self.mesh is None else
-                     f", {self.mesh.shape['data']}-way data axis"))
+                     f", {self.mesh.shape['data']}-way data axis")
+                  + ("" if self.mesh is None or self.mesh.shape["model"] == 1
+                     else f", {self.mesh.shape['model']}-way model axis"))
             self.batch_size = batch_size
 
             import itertools

@@ -50,9 +50,10 @@ from ..core.device import resolve_device
 from ..models.convert import load_checkpoint, save_checkpoint
 from ..models.fcn_lecturenet import (FCNConfig, FCNLectureNet,
                                      fold_batch_norms, init_weights)
-from ..parallel.mesh import (Mesh, MeshSpec, check_mesh,
-                             initialize_distributed_from_env, make_mesh,
-                             mesh_devices, process_rows, warmup_collectives)
+from ..parallel.mesh import (MODEL_AXIS_NOT_PORTED, Mesh, MeshSpec,
+                             check_mesh, initialize_distributed_from_env,
+                             make_mesh, mesh_devices, process_rows,
+                             warmup_collectives)
 from .losses import phase_losses
 
 _DTYPES = {"fp32": torch.float32, "float32": torch.float32,
@@ -96,6 +97,8 @@ class Trainer:
         self._group = None
         if mesh is not None:
             check_mesh(mesh)
+            if mesh.shape.get("model", 1) > 1:
+                raise NotImplementedError(MODEL_AXIS_NOT_PORTED)
             if len(mesh.local_devices) != 1:
                 raise ValueError(
                     f"data-parallel training drives one device a process, "

@@ -81,15 +81,18 @@ def run_training(case: str, mesh=None):
     return losses, state
 
 
-def run_inference(frames, mesh=None):
-    """The sharded Binarizer over the threshold-head weights, full output
-    (``binarize_frames``); every process passes all frames."""
+def run_inference(frames, mesh=None, weights="threshold"):
+    """The sharded Binarizer, full output (``binarize_frames``), over the
+    threshold-head weights, or (``weights='start'``) the seeded start
+    weights, whose logits read every layer; every process passes all
+    frames."""
     from lecturemath_tpu_torch.pipeline.binarize import Binarizer
     from lecturemath_tpu_torch.utils.synthetic import \
         threshold_binarizer_variables
 
     model = tfcn.FCNLectureNet(NET_CONFIG)
-    model.load_state_dict(threshold_binarizer_variables(NET_CONFIG))
+    model.load_state_dict(start_state_dict() if weights == "start" else
+                          threshold_binarizer_variables(NET_CONFIG))
     binarizer = Binarizer(model, batch_size=len(frames), mesh=mesh,
                           upload_format="rgb", device="cpu")
     return binarizer.binarize_frames(frames)
@@ -128,3 +131,40 @@ def run_batch_norm(dtype=torch.float32, rows=slice(None), group=None):
             "dbias": bn.bias.grad.numpy(),
             "running_mean": bn.running_mean.numpy(),
             "running_var": bn.running_var.numpy()}
+
+
+# the two uses of the mesh's model axis in ShardedBinarizer
+MODEL_AXIS_FLAGS = ("shard_params_over_model", "shard_spatial")
+
+
+def run_model_axis(frames, mesh, flag=None):
+    """ShardedBinarizer over the seeded start weights (eval mode), with
+    ``flag`` one of MODEL_AXIS_FLAGS (None: meshless, on a 1x1 CPU mesh):
+    (binaries, thresholdless sigmoid * 255 maps), every frame."""
+    from lecturemath_tpu_torch.parallel.inference import ShardedBinarizer
+    from lecturemath_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    if mesh is None:
+        mesh = make_mesh(MeshSpec(1, 1), [torch.device("cpu")])
+    out = []
+    for force_binary in (True, False):
+        model = tfcn.FCNLectureNet(NET_CONFIG)
+        model.load_state_dict(start_state_dict(), strict=True)
+        kwargs = {flag: True} if flag else {}
+        out.append(ShardedBinarizer(model.eval(), mesh,
+                                    force_binary=force_binary,
+                                    **kwargs).binarize_frames(frames))
+    return out
+
+
+def model_axis_logits(frames):
+    """The meshless binarization logits of the start weights, cropped to
+    the frames."""
+    from lecturemath_tpu_torch.models.fcn_lecturenet import model_input
+
+    model = tfcn.FCNLectureNet(NET_CONFIG)
+    model.load_state_dict(start_state_dict(), strict=True)
+    with torch.no_grad():
+        x, (h, w) = model_input(torch.from_numpy(np.ascontiguousarray(
+            frames)))
+        return model.eval()(x)[0][:, 0, :h, :w].numpy()

@@ -1,7 +1,8 @@
 """Worker process for tests/test_torch_multiprocess.py: one process of a
 2-process gloo world of the port (one CPU device each, a 2x1 mesh; two
-each for a 4x1 mesh). It runs the sharded Binarizer on both meshes, the cross-replica BatchNorm on its half of a
-batch, and the three data-parallel training cases of
+each for a 4x1 mesh). It runs the sharded Binarizer on both meshes, both
+uses of the model axis and the Binarizer on 1x2 and 2x2 meshes, the
+cross-replica BatchNorm on its half of a batch, and the three data-parallel training cases of
 tests/_torch_mp_workload.py and saves what it got to LM_OUT_PATH (.npz).
 
 Launched as a subprocess, NOT a pytest module. Env contract:
@@ -20,7 +21,7 @@ import torch.distributed as dist  # noqa: E402
 
 from lecturemath_tpu_torch.parallel.mesh import (  # noqa: E402
     MeshSpec, initialize_distributed_from_env, make_mesh, mesh_devices,
-    shutdown_distributed, warmup_collectives)
+    parse_mesh_arg, shutdown_distributed, warmup_collectives)
 
 import _torch_mp_workload as workload  # noqa: E402
 
@@ -39,6 +40,22 @@ def main():
     wide = MeshSpec(2 * spec.data, 1)
     out["binary_2x2"] = workload.run_inference(
         frames, make_mesh(wide, mesh_devices("cpu", wide)))
+    # the model axis: a 1x2 mesh whose model group spans the two
+    # processes (one CPU shard each), and 2x2 with a group in each
+    for text in ("1x2", "2x2"):
+        spec = parse_mesh_arg(text)
+        model_mesh = make_mesh(spec, mesh_devices("cpu", spec))
+        warmup_collectives(model_mesh)
+        for flag in workload.MODEL_AXIS_FLAGS:
+            out[f"{flag}_{text}/binary"], out[f"{flag}_{text}/map"] = \
+                workload.run_model_axis(frames, model_mesh, flag)
+        out[f"binary_{text}"] = workload.run_inference(frames, model_mesh)
+        out[f"binary_{text}/start"] = workload.run_inference(
+            frames, model_mesh, "start")
+        # a mesh made again reuses the world's sub-groups
+        again = make_mesh(spec, mesh_devices("cpu", spec))
+        assert (again.model_group, again.data_group) == \
+            (model_mesh.model_group, model_mesh.data_group)
     rows = slice(4 * mesh.rank, 4 * mesh.rank + 4)
     for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         got = workload.run_batch_norm(dtype, rows, dist.group.WORLD)

@@ -107,12 +107,29 @@ def test_cuda_without_a_card_raises(weights):
     _, _, state_dict = weights
     with pytest.raises(RuntimeError, match="CUDA"):
         Binarizer(_port_model(state_dict))
-    # a mesh's model axis (channel sharding) is not ported
+    # a model-axis mesh over the cards this process sees: there are none
+    from lecturemath_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    with pytest.raises(ValueError, match="no devices"):
+        make_mesh(MeshSpec(1, 2))
+
+
+def test_binarizer_model_axis_on_cpu_shards(weights):
+    """A 1x2 mesh of CPU devices channel-shards the Binarizer, and its
+    threshold heads give the meshless frames."""
     from lecturemath_tpu_torch.parallel.mesh import Mesh
 
+    _, _, state_dict = weights
     cpu = torch.device("cpu")
     model_axis = Mesh(shape={"data": 1, "model": 2},
                       devices=((0, cpu), (0, cpu)), local_devices=(cpu, cpu),
                       rank=0, world_size=1, device_count=2)
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        Binarizer(_port_model(state_dict), device="cpu", mesh=model_axis)
+    meshed = Binarizer(_port_model(state_dict), device="cpu",
+                       mesh=model_axis, batch_size=BATCH)
+    assert [r.model_index for r in meshed._replicas] == [0, 1]
+    rgb, _, _, _ = synthetic_rgb_lecture(seed=4, n_frames=2, height=96,
+                                         width=128)
+    np.testing.assert_array_equal(
+        meshed.binarize_frames(rgb),
+        Binarizer(_port_model(state_dict), device="cpu",
+                  batch_size=BATCH).binarize_frames(rgb))

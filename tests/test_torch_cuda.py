@@ -98,6 +98,11 @@ def _bf16_nhwc(shape, gen, device):
     (8, 0, 40, 5, "gelu", torch.float32, (61, 129)),        # two groups, k=5
     (5, 3, 8, 1, None, torch.float32, (61, 129)),           # k=1, unaligned
     (16, 19, 24, 3, "gelu", torch.bfloat16, (37, 70)),      # k=3, N=24
+    # the production heads' channel slices on the model axis: pixels_1 at
+    # M = 2 and 4, pixels_2 at M = 8
+    (3, 32, 16, 7, "gelu", torch.bfloat16, (70, 96)),
+    (3, 32, 8, 7, "gelu", torch.bfloat16, (70, 96)),
+    (3, 16, 2, 7, "gelu", torch.bfloat16, (70, 96)),
 ])
 def test_conv_same_nhwc_matches_plain(cuda, c_in, c2, n_out, k, activation,
                                       out_dtype, hw):
@@ -1104,3 +1109,48 @@ def test_export_binary_video_from_a_card_artifact(cuda, tmp_path,
         rendered = read_image(str(tmp_path / "lec.mp4_frames" / f"{idx}.png"))
         np.testing.assert_array_equal(
             rendered, np.repeat(binary[:, :, None], 3, axis=2))
+
+
+# --------------------------------------------------------- the model axis
+
+def _axis_models(cuda):
+    """Seeded xavier-normal weights (heads included) at small widths with
+    pixel kernel 7 and pixel features 16, 8; BN folded, bf16 on the card,
+    twice (a ShardedBinarizer moves the model it is given)."""
+    from lecturemath_tpu_torch.models.fcn_lecturenet import (
+        FCNConfig, FCNLectureNet, fold_model, init_weights)
+
+    cfg = FCNConfig(down_filters=(8, 16, 16, 32, 32), mid_filters=32,
+                    upsample_filters=(16, 16, 16, 32, 32),
+                    up_filters=(16, 16, 16, 32, 32), pixel_features=(16, 8),
+                    kernel_size=3, pixel_kernel_size=7)
+    model = init_weights(FCNLectureNet(cfg),
+                         torch.Generator().manual_seed(0)).eval()
+    return [fold_model(model).to(cuda, torch.bfloat16,
+                                 memory_format=torch.channels_last).eval()
+            for _ in range(2)]
+
+
+@pytest.mark.parametrize("flag", ["shard_params_over_model",
+                                  "shard_spatial"])
+def test_model_axis_on_one_card_launches_k2_on_the_shards(cuda, flag):
+    """Two shards of a 1x2 mesh on the one card: K2 runs 4 heads on each
+    (at N 8 and 4 on the channel path's head slices), K1 once a frame row
+    (channels) or once a slab (height), and the binaries stay within 1% of
+    the meshless bf16 path's (the shards sum in another order)."""
+    from lecturemath_tpu_torch.parallel.inference import ShardedBinarizer
+    from lecturemath_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    sharded_model, meshless_model = _axis_models(cuda)
+    frames = _serving_frames(3, height=96, width=128)
+    sharded = ShardedBinarizer(sharded_model, make_mesh(
+        MeshSpec(1, 2), [cuda] * 2), **{flag: True})
+    meshless = ShardedBinarizer(meshless_model, _one_card_mesh())
+    before = (threshold_pack.launches, conv_same_nhwc.launches)
+    got = sharded.binarize_frames(frames)
+    assert conv_same_nhwc.launches - before[1] == 8
+    assert threshold_pack.launches - before[0] == (
+        2 if flag == "shard_spatial" else 1)
+    expected = meshless.binarize_frames(frames)
+    assert got.shape == expected.shape == (3, 96, 128)
+    assert np.mean(got != expected) <= 0.01

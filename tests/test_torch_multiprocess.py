@@ -10,8 +10,13 @@ JAX package's 8-device data-axis mesh (the conftest's virtual CPUs).
   all-reduce): the per-step losses and the final weights and BN running
   statistics equal both references within rtol 1e-5 / atol 1e-6 (fp32;
   the reductions sum in another order across the process boundary).
-- ``cli.binarize -mesh 2`` run as 2 processes writes the single-process
-  CLI's artifact byte for byte; ``train_reconstruction -mesh 2`` in one
+- The model axis (channels and height) on 1x2 meshes, whose model group
+  spans the two processes, and 2x2 meshes, a group in each: every process
+  gets every frame of the meshless port (binaries equal but at pixels
+  whose logit lies within NEAR of the threshold); the same for the
+  stage-01 Binarizer over seeded weights whose logits read every layer.
+- ``cli.binarize -mesh 2`` and ``-mesh 1x2`` run as 2 processes write the
+  single-process CLI's artifact byte for byte; ``train_reconstruction -mesh 2`` in one
   process launches its 2 workers, and a failing worker fails the CLI.
 
 Every world runs under its own deadline (WORLD_DEADLINE_S) and is killed
@@ -158,6 +163,60 @@ def test_sharded_binarizer_gives_every_process_all_frames(world):
         np.testing.assert_array_equal(world[rank]["binary_2x2"], theirs)
 
 
+# binaries may differ only where the meshless logit lies this close to the
+# threshold's (sharded layers sum in another order); at most MAX_NEAR of
+# the pixels are that close, and the sigmoid * 255 maps differ there by
+# one level at most
+NEAR, MAX_NEAR = 1e-5, 1e-3
+THRESHOLD_LOGIT = np.log(128 / 127)
+
+
+@pytest.mark.parametrize("mesh_text", ["1x2", "2x2"])
+@pytest.mark.parametrize("flag", workload.MODEL_AXIS_FLAGS)
+def test_model_axis_gives_every_process_all_frames(world, mesh_text, flag):
+    """Channels or height over the model axis, its group across the two
+    processes (1x2: gathers, the transposed convs' sum and the halos travel
+    over gloo) or inside each (2x2): every process gets every frame, the
+    meshless port's."""
+    frames = workload.make_frames()
+    binary, level = workload.run_model_axis(frames, None)
+    near = np.abs(workload.model_axis_logits(frames)
+                  - THRESHOLD_LOGIT) < NEAR
+    assert near.mean() <= MAX_NEAR
+    for rank in range(2):
+        got = world[rank][f"{flag}_{mesh_text}/binary"]
+        assert got.shape == binary.shape
+        assert not ((got != binary) & ~near).any(), rank
+        got = world[rank][f"{flag}_{mesh_text}/map"].astype(int)
+        assert np.abs(got - level.astype(int)).max() <= 1
+        assert np.mean(got != level) <= MAX_NEAR
+    # the stage-01 Binarizer, channel-sharded across the processes; the
+    # threshold heads read no trunk channel, so bit for bit
+    np.testing.assert_array_equal(world[0][f"binary_{mesh_text}"],
+                                  workload.run_inference(frames))
+    np.testing.assert_array_equal(world[1][f"binary_{mesh_text}"],
+                                  world[0][f"binary_{mesh_text}"])
+
+
+@pytest.mark.parametrize("mesh_text", ["1x2", "2x2"])
+def test_binarizer_model_axis_reaches_the_trunk_across_processes(
+        world, mesh_text):
+    """The stage-01 Binarizer channel-sharded across the processes (1x2)
+    or inside each (2x2), over the seeded start weights, whose logits read
+    every trunk layer: every process gets the meshless Binarizer's frames,
+    but where the meshless logit lies within NEAR of the threshold."""
+    frames = workload.make_frames()
+    expected = workload.run_inference(frames, None, "start")
+    near = np.abs(workload.model_axis_logits(frames)
+                  - THRESHOLD_LOGIT) < NEAR
+    assert near.mean() <= MAX_NEAR
+    assert (expected == 255).any() and (expected == 0).any()
+    for rank in range(2):
+        got = world[rank][f"binary_{mesh_text}/start"]
+        assert got.shape == expected.shape
+        assert not ((got != expected) & ~near).any(), rank
+
+
 def _jax_training(case):
     use_weights, clip_norm = workload.TRAIN_CASES[case]
     variables = flax_variables_from_state_dict(workload.start_state_dict())
@@ -271,6 +330,23 @@ def test_binarize_cli_mesh_across_two_processes(lecture_workspace):
     assert (root / "out_mesh" / artifact).read_bytes() == single
     times, indices, frames = pickle.loads(single)
     assert len(indices) == 9 and len(frames) == 9
+
+
+def test_binarize_cli_model_axis_across_two_processes(lecture_workspace):
+    """-mesh 1x2 in 2 processes, one CPU shard each: the model group spans
+    the processes, and both write the meshless CLI's artifact."""
+    root, configs = lecture_workspace
+    binarize.main(["binarize", str(configs["single"]), "-device", "cpu"])
+    results = run_world([sys.executable, "-m",
+                         "lecturemath_tpu_torch.cli.binarize",
+                         str(configs["mesh"]), "-mesh", "1x2",
+                         "-device", "cpu"])
+    for code, text in results:
+        assert code == 0, text[-3000:]
+        assert "1-way data axis, 2-way model axis" in text
+    artifact = os.path.join("temporal", "tempo_binary_synth01.dat")
+    assert (root / "out_mesh" / artifact).read_bytes() == \
+        (root / "out_single" / artifact).read_bytes()
 
 
 @pytest.fixture()

@@ -2,9 +2,10 @@
 ``MeshSpec.resolve`` and ``local_row_slice`` over a grid of meshes, process
 counts and row counts (the JAX side with its process count and index
 monkeypatched, as tests/test_parallel.py does), stage 01 through a
-4-replica CPU mesh, ``ShardedBinarizer``, and the model axis raising
-(ROADMAP queue 1, item 10b). fp32 on the CPU at TINY widths; the binaries
-are compared bit for bit."""
+4-replica CPU mesh, ``ShardedBinarizer``, and the model axis's entry
+points running for inference while training over it raises (ROADMAP queue
+1, item 10b; its numbers are tests/test_torch_model_axis.py's). fp32 on the
+CPU at TINY widths; the binaries are compared bit for bit."""
 
 import jax
 import jax.numpy as jnp
@@ -184,24 +185,49 @@ def test_sharded_binarizer_full_output(ragged, threshold_weights):
 
 
 def test_model_axis_raises_item_10b(threshold_weights):
+    """Training over the model axis is not ported: the Trainer and the
+    training CLIs' launcher raise, naming item 10b."""
+    from lecturemath_tpu_torch.parallel.launch import workers_needed
+    from lecturemath_tpu_torch.train.trainer import Trainer
+
     _, _, state_dict = threshold_weights
     with pytest.raises(NotImplementedError, match="item 10b"):
-        tmesh.make_mesh(tmesh.MeshSpec(2, 2), [CPU] * 4)
-    mesh = tmesh.make_mesh(tmesh.MeshSpec(2, 1), [CPU] * 2)
+        Trainer(_port_model(state_dict), 0.1,
+                mesh=tmesh.make_mesh(tmesh.MeshSpec(1, 2), [CPU] * 2))
+    with pytest.raises(NotImplementedError, match="item 10b"):
+        workers_needed(tmesh.MeshSpec(2, 2), "cpu")
+    assert "training" in tmesh.MODEL_AXIS_NOT_PORTED
+
+
+def test_model_axis_runs_for_inference(ragged, threshold_weights):
+    """make_mesh(2x2), its spec tree, shard_params, the stage-01 Binarizer
+    and both ShardedBinarizer uses of the model axis give the meshless
+    frames (the threshold heads read no trunk channel, so bit for bit)."""
+    _, _, state_dict = threshold_weights
+    mesh = tmesh.make_mesh(tmesh.MeshSpec(2, 2), [CPU] * 4)
+    assert mesh.shape == {"data": 2, "model": 2}
+    assert tmesh.local_model_groups(mesh) == [[(0, 0), (1, 1)],
+                                              [(0, 2), (1, 3)]]
+    specs = tmesh.params_pspec_tree(state_dict, mesh)
+    assert specs["conv_down_block_1.0.weight"] == ("model", None, None, None)
+    assert specs["conv_down_block_2.0.weight"] == ()     # 3 channels
+    shards = tmesh.shard_params(mesh, _port_model(state_dict))
+    assert [s.conv_down_block_1[0].weight.shape[0] for s in shards] == [1] * 4
+    expected = ShardedBinarizer(_port_model(state_dict),
+                                tmesh.make_mesh(tmesh.MeshSpec(1, 1), [CPU])
+                                ).binarize_frames(ragged[:4])
     for kwargs in ({"shard_params_over_model": True},
                    {"shard_spatial": True}):
-        with pytest.raises(NotImplementedError, match="item 10b"):
-            ShardedBinarizer(_port_model(state_dict), mesh, **kwargs)
-    model_mesh = tmesh.Mesh(shape={"data": 1, "model": 2},
-                            devices=((0, CPU), (0, CPU)),
-                            local_devices=(CPU, CPU), rank=0, world_size=1,
-                            device_count=2)
-    for call in (lambda: tmesh.params_pspec_tree({}, model_mesh),
-                 lambda: tmesh.shard_params(model_mesh, torch.nn.Linear(1, 1)),
-                 lambda: Binarizer(_port_model(state_dict), mesh=model_mesh)):
-        with pytest.raises(NotImplementedError, match="item 10b"):
-            call()
-    assert tmesh.params_pspec_tree({"w": torch.zeros(2)}, mesh) == {"w": ()}
+        got = ShardedBinarizer(_port_model(state_dict), mesh,
+                               **kwargs).binarize_frames(ragged[:4])
+        np.testing.assert_array_equal(got, expected)
+    np.testing.assert_array_equal(
+        Binarizer(_port_model(state_dict), mesh=mesh,
+                  upload_format="rgb").binarize_frames(ragged[:4]),
+        expected)
+    assert tmesh.params_pspec_tree({"w": torch.zeros(2)},
+                                   tmesh.make_mesh(tmesh.MeshSpec(2, 1),
+                                                   [CPU] * 2)) == {"w": ()}
 
 
 def test_trainer_takes_one_device_a_process(threshold_weights):

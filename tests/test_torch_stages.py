@@ -356,17 +356,46 @@ def test_device_entry_points_raise_without_card(rgb_workspace, staged):
         quickstart.main(["quickstart", str(staged["root"] / "qs_nocard")])
 
 
-def test_binarize_mesh_is_not_ported(rgb_workspace):
-    """The model axis of a mesh: -mesh DxM with M > 1, and TPU_MESH, which
-    express used to drop without a word."""
+def test_binarize_mesh_is_not_ported(rgb_workspace, capsys):
+    """The model axis of a mesh, which used to raise: cli.binarize -mesh
+    2x2 and express with TPU_MESH = 1x2 (channel-sharded stage 01 on CPU
+    shards) write the meshless artifact and summary, and the JAX package's
+    CLIs on the same meshes write the same (tests/test_cli_mesh.py runs
+    4x2). The threshold heads read no trunk channel, so bit for bit."""
+    from lecturemath_tpu.cli import binarize as jax_binarize
+    from lecturemath_tpu.cli import run_pipeline as jax_run_pipeline
+
     root, configs, _ = rgb_workspace
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        binarize.main(["binarize", configs["staged"], "-mesh", "2x2",
-                       "-device", "cpu"])
-    conf = root / "model_axis.conf"
-    conf.write_text(open(configs["express"]).read() + "\nTPU_MESH = 1x2")
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        run_pipeline.main(["run_pipeline", str(conf), "-device", "cpu"])
+    text = open(configs["express"]).read()
+    paths = {}
+    for name, extra in (("single", ""), ("mesh", "\nTPU_MESH = 1x2"),
+                        ("jax", "\nTPU_MESH = 1x2")):
+        paths[name] = root / f"model_axis_{name}.conf"
+        paths[name].write_text(text.replace(
+            "out_express", f"out_model_axis_{name}") + extra)
+    for name, flag in (("single", []), ("mesh", ["-mesh", "2x2"])):
+        binarize.main(["binarize", str(paths[name]), "-device", "cpu"]
+                      + flag)
+        run_pipeline.main(["run_pipeline", str(paths[name]), "-device",
+                           "cpu"])
+        assert "synth01: 2 keyframes" in capsys.readouterr().out
+    jax_binarize.main(["binarize", str(paths["jax"]), "-mesh", "2x2"])
+    jax_run_pipeline.main(["run_pipeline", str(paths["jax"])])
+    trees = {name: root / f"out_model_axis_{name}" for name in paths}
+    artifact = os.path.join("temporal", f"tempo_binary_{LECTURE}.dat")
+    assert (trees["mesh"] / artifact).read_bytes() == \
+        (trees["single"] / artifact).read_bytes()
+    ours = PipelineDriver.from_config_path(
+        str(paths["mesh"]), [], None, None).store.load("tempo_binary_",
+                                                       LECTURE)
+    theirs = JaxDriver.from_config_path(
+        str(paths["jax"]), [], None, None).store.load("tempo_binary_",
+                                                      LECTURE)
+    assert ours[:2] == theirs[:2] and len(ours[2]) == 40
+    for a, b in zip(decompress_png(ours[2]), decompress_png(theirs[2])):
+        np.testing.assert_array_equal(a, b)
+    assert _summary_tree(trees["mesh"]) == _summary_tree(trees["single"]) \
+        == _summary_tree(trees["jax"])
 
 
 @pytest.mark.parametrize("request_by", ["flag", "config"])
