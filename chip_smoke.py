@@ -204,16 +204,36 @@ then, in phases:
      1x2 over 2 cards in-process and in a 2-process NCCL world, each
      writing the meshless artifact; otherwise one line says it did not
      run.
+ 16. training over the mesh's model axis on meshes over [cuda:0] * M (the
+     shards of one data position share the card), at phase 8's widths,
+     256x256 crops and PNG dataset: (a) 3 fp32 steps (TF32 off) at batch 8
+     on 1x2 and 1x4 against the meshless Trainer from the same weights on
+     the same batches, for live BN (reconstruction from scratch), frozen
+     BN folded (the binarizer phase from warm-start weights) and
+     use_weights with clip_norm: losses within rtol 1e-4 and every
+     assembled tensor within 1e-4 of its largest |value| (1e-6 at least);
+     (b) 10 bf16
+     steps of the binarizer phase (live BN) on one batch on 1x2, within
+     rtol 2e-2 of meshless bf16 and falling, then the
+     bf16 batch-64 step ms and peak GiB of meshless, 1x2 and 1x4 (printed,
+     not gated); no kernel may launch in (a) or (b); (c) the trained 1x2
+     checkpoint (Trainer.save) through the meshless packed binarizer (K2,
+     K1) and ShardedBinarizer's channel shards on 1x2, each within 1% of
+     the plain f32 model, K1 and K2 launched, and the shards' logits
+     within 2^-6 of the largest meshless bf16 logit; (d), with 2 or more
+     cards only: train_binarizer -mesh 1x2 over 2 cards in a child;
+     otherwise one line says it did not run.
 
 Each phase's wall prints as it ends, and all of them on one line before the
-kernels line. The launch counts are set to 0 just before each of the eleven
-paths (phases 4, 6, 7, 8, 9, 10, 11, 12, 13, 14 and 15; in phase 10 around
+kernels line. The launch counts are set to 0 just before each of the twelve
+paths (phases 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15 and 16; in phase 10 around
 each mesh run, and the child processes count their own; in phase 11 the
 worker's children count theirs and report them with each stream; in phase
 14 every step on the card counts its own in its child and reports them on
 its last line, the drive launches nothing in this process, and the
 comparison with the plain model after it does not count; in phase 15
-around each of its gated runs, its comparisons and timings not counted)
+around each of its gated runs, its comparisons and timings not counted;
+in phase 16 once before its training and around each of (c)'s two runs)
 and read just after.
 Serving launches are graph replays times the launches each graph holds,
 counted by the service: the wrappers count once when a graph is captured.
@@ -5430,6 +5450,440 @@ def phase_model_axis(conf, counters, summary, card):
     return launches, numbers
 
 
+# --------------------------------------------------------------- phase 16
+
+# training over the model axis on one card: meshes over [cuda:0] * M put
+# the M shards of a data position on the one card (the sharded math and
+# its gathers, no communication between cards), at the phase-8 widths,
+# 256x256 crops and batch 8 from phase 8's PNG dataset. (a) 3 fp32 steps
+# (TF32 off) of each case on 1x2 and 1x4 against the meshless Trainer,
+# from the same weights on the same batches
+AXIS_TRAIN_STEPS = 3
+AXIS_TRAIN_MODELS = (2, 4)
+# (a)'s gates: the losses, and every assembled tensor within
+# AXIS_STATE_REL of its tensor's largest |value| or AXIS_STATE_ABS,
+# whichever is larger: cuDNN may pick another algorithm for a sliced shape.
+# The floor is the CPU tests' atol; it matters only for the conv biases in
+# front of a live BN, whose true gradient is zero (the batch mean removes
+# them), so that both runs hold rounding noise there (~1e-10)
+AXIS_LOSS_RTOL = 1e-4
+AXIS_STATE_REL = 1e-4
+AXIS_STATE_ABS = 1e-6
+# (b): bf16 steps on 1x2 against meshless bf16 on one batch: bf16 rounds
+# every product of the sharded sums another way
+AXIS_BF16_STEPS = 10
+AXIS_BF16_RTOL = 2e-2
+AXIS_TIMED_BATCH = 64
+AXIS_TIMED_STEPS = 5
+# (c): frames binarized from the trained 1x2 checkpoint
+AXIS_CHECK_FRAMES = 8
+# (c)'s bin logits of the 1x2 shards against meshless bf16, relative to
+# the largest logit: both round every layer's output to bf16 (about 20
+# deep), in another order where a layer is sharded. At these widths on
+# the CPU (seeded weights, one 256x256 frame) the two differ by
+# 2.5e-3-2.9e-3, while a gather in the wrong order moves the logits by
+# 0.40 and dropping the transposed convs' partial sums by 0.026
+AXIS_LOGIT_REL = 2.0 ** -6
+
+
+def axis_train_batches(conf, phase, n):
+    """``n`` host batches of TRAIN_BATCH from phase 8's PNG dataset for
+    ``phase`` (reconstruction: the frames and their median targets;
+    text_detector and binarizer: the keyframe / binary pairs with text
+    masks, the text detector's median targets too)."""
+    from lecturemath_tpu_torch.core.config import Config
+    from lecturemath_tpu_torch.train.dataset import (LectureNetDataset,
+                                                     find_image_mask_pairs,
+                                                     find_images)
+
+    config = Config.from_file(conf)
+    annotations = os.path.join(WORKSPACE, "output", "annotations",
+                               "SmokeDB_smoke01")
+    if phase == "reconstruction":
+        images = find_images(config.get_str(
+            "FCN_BINARIZER_PRETRAIN_REC_IMAGES_DIR"))
+        gts = None
+        options = dict(reconstruction_mode=True, reconstruct_median=True)
+    else:
+        images, gts = find_image_mask_pairs(
+            os.path.join(annotations, "keyframes"),
+            os.path.join(annotations, "binary"))
+        options = dict(reconstruction_mode=False, text_mask_expansion=15,
+                       reconstruct_median=phase == "text_detector")
+    dataset = LectureNetDataset.from_config(config, images, gts, **options)
+    dataset.preload()
+    out = []
+    while len(out) < n:
+        out.extend(dataset.batches(TRAIN_BATCH))
+    return out[:n]
+
+
+def axis_start_state(net_config, reconstruction_mode, seed=0):
+    """Seeded xavier weights with the BatchNorms' affines and running
+    statistics off identity, as a warm start holds them."""
+    import torch
+
+    from lecturemath_tpu_torch.models.fcn_lecturenet import (FCNLectureNet,
+                                                             init_weights)
+
+    model = init_weights(FCNLectureNet(net_config, reconstruction_mode),
+                         torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, torch.nn.BatchNorm2d):
+                module.weight.uniform_(0.5, 1.5, generator=gen)
+                module.bias.normal_(0, 0.1, generator=gen)
+                module.running_mean.normal_(0, 0.1, generator=gen)
+                module.running_var.uniform_(0.5, 1.5, generator=gen)
+    return model.state_dict()
+
+
+# (a)'s cases: the phase, the Trainer's options, the learning rate (the
+# example config's), and whether the weights are a warm start's
+AXIS_TRAIN_CASES = {
+    "live BN (reconstruction from scratch)": (
+        "reconstruction", {}, 0.01, False),
+    "frozen BN folded (binarizer warm-started)": (
+        "binarizer", dict(freeze_bn=True, fold_frozen_bn=True), 0.001, True),
+    "use_weights + clip_norm (binarizer)": (
+        "binarizer", dict(use_weights=True, clip_norm=1.0), 0.001, False),
+}
+
+
+def axis_trainer(net_config, case, dtype, model):
+    """A Trainer of (a)'s ``case`` in ``dtype`` on the card: meshless
+    (``model`` 1) or on a 1 x ``model`` mesh over the one card."""
+    import torch
+
+    from lecturemath_tpu_torch.models.fcn_lecturenet import FCNLectureNet
+    from lecturemath_tpu_torch.train.trainer import Trainer
+
+    phase, options, lr, warm = AXIS_TRAIN_CASES[case]
+    rec = phase == "reconstruction"
+    net = FCNLectureNet(net_config, reconstruction_mode=rec,
+                        compute_dtype=dtype)
+    if warm:
+        net.load_state_dict(axis_start_state(net_config, rec))
+    else:
+        from lecturemath_tpu_torch.models.fcn_lecturenet import init_weights
+
+        init_weights(net, torch.Generator().manual_seed(0))
+    return Trainer(net, lr, phase=phase, prefetch_depth=0,
+                   device="cuda" if model == 1 else None,
+                   mesh=None if model == 1 else card_mesh(1, model),
+                   **options)
+
+
+def axis_train_run(trainer, batches):
+    """One step a batch: (per-step totals, the assembled state)."""
+    losses = [float(trainer.step(batch)["total"]) for batch in batches]
+    return losses, {key: value.float().cpu() for key, value in
+                    trainer.state_dict().items()
+                    if not key.endswith("num_batches_tracked")}
+
+
+def axis_train_parity(conf, net_config):
+    """(a): every case on 1x2 and 1x4 against meshless in fp32."""
+    import torch
+
+    batches = {phase: axis_train_batches(conf, phase, AXIS_TRAIN_STEPS)
+               for phase in ("reconstruction", "binarizer")}
+    numbers = {}
+    for case, (phase, _, _, _) in AXIS_TRAIN_CASES.items():
+        plain = axis_train_run(axis_trainer(net_config, case, torch.float32,
+                                            1), batches[phase])
+        for model in AXIS_TRAIN_MODELS:
+            losses, state = axis_train_run(axis_trainer(
+                net_config, case, torch.float32, model), batches[phase])
+            loss_rel = max(abs(a - b) / abs(b)
+                           for a, b in zip(losses, plain[0]))
+            state_rel = max(float((state[key] - value).abs().max())
+                            / max(float(value.abs().max()),
+                                  AXIS_STATE_ABS / AXIS_STATE_REL)
+                            for key, value in plain[1].items())
+            log(f"model-axis training (a) {case}, 1x{model} vs meshless, "
+                f"fp32, {AXIS_TRAIN_STEPS} steps at batch {TRAIN_BATCH}: "
+                f"losses {[round(v, 6) for v in losses]} vs "
+                f"{[round(v, 6) for v in plain[0]]} (largest rel "
+                f"{loss_rel:.3g}, bound {AXIS_LOSS_RTOL}); assembled state "
+                f"largest |diff| / max(max |value|, "
+                f"{AXIS_STATE_ABS / AXIS_STATE_REL:g}) {state_rel:.3g} "
+                f"(bound {AXIS_STATE_REL})")
+            if sorted(state) != sorted(plain[1]):
+                raise AssertionError(f"(a) {case} 1x{model}: the assembled "
+                                     f"state has other tensors")
+            if not (loss_rel <= AXIS_LOSS_RTOL
+                    and state_rel <= AXIS_STATE_REL):
+                raise AssertionError(f"(a) {case} 1x{model}: losses rel "
+                                     f"{loss_rel}, state rel {state_rel}")
+            numbers[f"{case} 1x{model}"] = {"loss_rel": loss_rel,
+                                            "state_rel": state_rel}
+        torch.cuda.empty_cache()
+    return numbers
+
+
+def axis_step_ms(trainer, batch):
+    """Median step ms over AXIS_TIMED_STEPS after 2 warm-up steps (CUDA
+    events), and the card's peak GiB over them."""
+    import statistics
+
+    import torch
+
+    batch = trainer.to_device(batch)
+    for _ in range(2):
+        trainer.step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = []
+    for _ in range(AXIS_TIMED_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainer.step(batch)
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return (statistics.median(s.elapsed_time(e) for s, e in events),
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def axis_train_bf16(conf, net_config, card):
+    """(b): AXIS_BF16_STEPS bf16 steps of the binarizer phase (live BN,
+    from seeded weights) on one batch, 1x2 against meshless; then the
+    bf16 batch-64 step ms and peak GiB of meshless, 1x2 and 1x4 (printed,
+    not gated). Returns (the 1x2 trainer, numbers)."""
+    import numpy as np
+    import torch
+
+    from lecturemath_tpu_torch.models.fcn_lecturenet import (FCNLectureNet,
+                                                             init_weights)
+    from lecturemath_tpu_torch.train.trainer import Trainer
+
+    batch = axis_train_batches(conf, "binarizer", 1)[0]
+
+    def trainer(model):
+        net = init_weights(FCNLectureNet(net_config,
+                                         compute_dtype=torch.bfloat16),
+                           torch.Generator().manual_seed(0))
+        return Trainer(net, 0.01, phase="binarizer", prefetch_depth=0,
+                       device="cuda" if model == 1 else None,
+                       mesh=None if model == 1 else card_mesh(1, model))
+
+    curves = {}
+    trained = None
+    for model in (1, 2):
+        run = trainer(model)
+        on_card = run.to_device(batch)
+        curves[model] = [float(run.step(on_card)["total"])
+                         for _ in range(AXIS_BF16_STEPS)]
+        if model == 2:
+            trained = run
+        del run
+    rel = max(abs(a - b) / abs(b) for a, b in zip(curves[2], curves[1]))
+    log(f"model-axis training (b) bf16, binarizer phase, live BN, "
+        f"{AXIS_BF16_STEPS} steps on one batch of {TRAIN_BATCH}: 1x2 "
+        f"{[round(v, 5) for v in curves[2]]}, meshless "
+        f"{[round(v, 5) for v in curves[1]]} (largest rel {rel:.3g}, bound "
+        f"{AXIS_BF16_RTOL})")
+    if not (rel <= AXIS_BF16_RTOL and curves[2][-1] < curves[2][0]):
+        raise AssertionError(f"(b) bf16 1x2 losses {curves[2]} vs "
+                             f"meshless {curves[1]}")
+    big = {key: np.concatenate([value] * (AXIS_TIMED_BATCH // TRAIN_BATCH))
+           for key, value in batch.items()}
+    timed = {}
+    for model in (1, 2, 4):
+        run = trainer(model)
+        ms, peak = axis_step_ms(run, big)
+        timed["meshless" if model == 1 else f"1x{model}"] = {
+            "step_ms": ms, "peak_gib": peak}
+        del run
+        torch.cuda.empty_cache()
+    log(f"model-axis training (b) bf16 live BN, batch {AXIS_TIMED_BATCH} at "
+        f"256x256, step ms (median of {AXIS_TIMED_STEPS}, CUDA events) and "
+        f"peak GiB, shards sharing one card (the price, not a speed-up): "
+        f"{json.dumps(timed)}; on {card}")
+    return trained, {"loss_rel": rel, "losses_1x2": curves[2],
+                     "losses_meshless": curves[1], "batch_64": timed}
+
+
+def axis_trained_check(trained, net_config, counters, card):
+    """(c): the trained 1x2 checkpoint saved by Trainer.save, reloaded
+    meshless, through the packed binarizer (K2, K1) and through
+    ShardedBinarizer's channel shards on 1x2 (K2 on the shards' heads,
+    K1), each within phase 8's flip rate of the plain f32 model, and the
+    shards' logits within AXIS_LOGIT_REL of meshless bf16."""
+    import numpy as np
+    import torch
+
+    from lecturemath_tpu_torch.models.convert import load_checkpoint
+    from lecturemath_tpu_torch.models.fcn_lecturenet import (
+        FCNLectureNet, fold_model, make_packed_binarizer, model_input,
+        unpack_bits_host)
+    from lecturemath_tpu_torch.parallel.inference import ShardedBinarizer
+    from lecturemath_tpu_torch.parallel.model_axis import \
+        forward_channel_sharded
+
+    path = os.path.join(WORKSPACE, "models", "axis_1x2.msgpack")
+    trained.save(path)
+    state = load_checkpoint(path)
+    source = make_source()
+    pick = np.linspace(0, N_FRAMES - 1, AXIS_CHECK_FRAMES).astype(int)
+    frames = np.stack([source.rgb_frame(t) for t in pick])
+
+    def bf16_model():
+        net = FCNLectureNet(net_config)
+        net.load_state_dict(state)
+        return fold_model(net.eval()).to(
+            device="cuda", dtype=torch.bfloat16,
+            memory_format=torch.channels_last).eval()
+
+    model = bf16_model()
+    meshless = make_packed_binarizer(model)
+    meshless(torch.from_numpy(frames).cuda())
+    packed, launches_meshless, _ = axis_counted(
+        counters, lambda: meshless(torch.from_numpy(frames).cuda()))
+    axis_gate("(c) meshless packed binarizer", launches_meshless, 1, 1)
+    sharded = ShardedBinarizer(bf16_model(), card_mesh(1, 2),
+                               shard_params_over_model=True)
+    ours, launches_sharded, _ = axis_counted(
+        counters, lambda: sharded.binarize_frames(frames))
+    axis_gate("(c) ShardedBinarizer channels 1x2", launches_sharded, 2, 1)
+    f32 = plain_bits(state, net_config, torch.from_numpy(frames))
+    bits = unpack_bits_host(packed.cpu().numpy(), WIDTH)
+    vs_f32 = {"meshless": flips(bits, f32), "1x2": flips(ours, f32)}
+    truth = np.stack([source.binary_frame(t) for t in pick]) > 0
+    log(f"model-axis training (c) the trained 1x2 checkpoint "
+        f"({len(state)} tensors, Trainer.save) on {AXIS_CHECK_FRAMES} "
+        f"frames {WIDTH}x{HEIGHT}: flips vs plain f32 {json.dumps(vs_f32)} "
+        f"(bound {MAX_FLIP_RATE}); 1x2 vs meshless {flips(ours, bits)}; "
+        f"ink share {float(np.mean(bits == 0)):.4f} (ground truth "
+        f"{float(np.mean(truth)):.4f}, pixels off it "
+        f"{float(np.mean((bits == 0) != truth)):.4f}); launches meshless "
+        f"{launches_meshless}, 1x2 {launches_sharded}; on {card}")
+    # the binaries of a few trained steps may sit far from the threshold
+    # (all background), where no flip can show a fault: the logits are
+    # held too, the shards' against meshless bf16 (AXIS_LOGIT_REL)
+    x, _ = model_input(torch.from_numpy(frames).cuda())
+    with torch.no_grad():
+        logits = model(x)[0].float()
+        sharded_logits = forward_channel_sharded(sharded.shards, x)[0]
+        plain = FCNLectureNet(net_config, plain=True)
+        plain.load_state_dict(state)
+        plain_logits = plain.cuda().eval()(x)[0]
+    largest = float(logits.abs().max())
+    logit_rel = float((sharded_logits.float() - logits).abs().max()) / largest
+    plain_rel = float((plain_logits - logits).abs().max()) / largest
+    log(f"model-axis training (c) bin logits of the trained checkpoint: "
+        f"1x2 shards vs meshless bf16 max |diff| / max |logit| "
+        f"{logit_rel:.3g} (bound {AXIS_LOGIT_REL:.3g}; max |logit| "
+        f"{largest:.4g}); meshless bf16 vs plain f32 {plain_rel:.3g}")
+    if max(rate for _, rate in vs_f32.values()) > MAX_FLIP_RATE:
+        raise AssertionError(f"(c) flip rates vs plain f32 {vs_f32}")
+    if not logit_rel <= AXIS_LOGIT_REL:
+        raise AssertionError(f"(c) the 1x2 shards' logits differ from "
+                             f"meshless bf16 by {logit_rel} of the largest")
+    launches = {key: launches_meshless[key] + launches_sharded[key]
+                for key in launches_meshless}
+    return launches, {"flips_vs_f32": vs_f32, "logit_rel_1x2": logit_rel,
+                      "logit_rel_plain_f32": plain_rel}
+
+
+def axis_train_cli_child(conf):
+    """Child: cli.train_binarizer on ``conf`` with ``-mesh 1x2`` over the
+    two cards it sees; prints its launches."""
+    sys.path.insert(0, REPO)
+    from lecturemath_tpu_torch.cli import train_binarizer
+    from lecturemath_tpu_torch.ops.conv7 import conv_same_nhwc
+
+    t0 = time.perf_counter()
+    train_binarizer.main(["train_binarizer", conf, "testing", "-mesh",
+                          "1x2"])
+    print(json.dumps({"wall_s": time.perf_counter() - t0,
+                      "conv_same_nhwc": conv_same_nhwc.launches}),
+          flush=True)
+    return 0
+
+
+def axis_train_two_cards(conf, card):
+    """(d): train_binarizer -mesh 1x2 over two cards in a child (one data
+    position, its two shards a card each); its checkpoint is finite and
+    holds every tensor of phase 8's."""
+    import torch
+
+    from lecturemath_tpu_torch.models.convert import load_checkpoint
+
+    with open(conf) as f:
+        text = f.read()
+    cli_conf = os.path.join(WORKSPACE, "axis_train.conf")
+    out = os.path.join(WORKSPACE, "models", "axis_cli.msgpack")
+    with open(cli_conf, "w") as f:
+        f.write(text.replace(f"{WORKSPACE}/models/binarizer.msgpack", out)
+                .replace("FCN_BINARIZER_TRAIN_EPOCHS = 5",
+                         "FCN_BINARIZER_TRAIN_EPOCHS = 1"))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="0,1")
+    env.pop("LM_COORDINATOR", None)
+    code = (f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
+            f"sys.exit(chip_smoke.axis_train_cli_child({cli_conf!r}))")
+    proc = subprocess.Popen([sys.executable, "-c", code], env=env, cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    result = child_results([proc], "train_binarizer -mesh 1x2, 2 cards")[0]
+    state = load_checkpoint(out)
+    expected = load_checkpoint(os.path.join(WORKSPACE, "models",
+                                            "text_pretrain.msgpack"))
+    if sorted(state) != sorted(expected) or not all(
+            torch.isfinite(v).all() for v in state.values()):
+        raise AssertionError("(d) the 2-card checkpoint is incomplete or "
+                             "not finite")
+    if result["conv_same_nhwc"]:
+        raise AssertionError("(d) a training forward launched K2")
+    log(f"model-axis training (d) train_binarizer -mesh 1x2 over 2 cards: "
+        f"{result['wall_s']:.3f} s, checkpoint of {len(state)} finite "
+        f"tensors, K2 0; on {card}")
+    return result
+
+
+def phase_model_axis_training(counters, card):
+    """Phase 16: training over the model axis on the card; returns
+    (launch counts of the path, numbers)."""
+    import torch
+
+    from lecturemath_tpu_torch.core.config import Config
+    from lecturemath_tpu_torch.models.fcn_lecturenet import FCNConfig
+
+    t0 = time.perf_counter()
+    conf = make_training_set()
+    net_config = FCNConfig.from_config(Config.from_file(conf))
+    for counter in counters.values():
+        counter.launches = 0
+    numbers = {"parity_fp32": axis_train_parity(conf, net_config)}
+    trained, numbers["bf16"] = axis_train_bf16(conf, net_config, card)
+    training_launches = counted(counters)
+    if any(training_launches.values()):
+        raise AssertionError(f"model-axis training launched kernels "
+                             f"{training_launches}: K2 under grad")
+    log("model-axis training (a), (b): no kernel launched (the heads run "
+        "F.conv2d under grad)")
+    launches, numbers["trained_check"] = axis_trained_check(
+        trained, net_config, counters, card)
+    del trained
+    torch.cuda.empty_cache()
+    for name in EXPRESS_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched")
+    if torch.cuda.device_count() >= 2:
+        numbers["two_cards"] = axis_train_two_cards(conf, card)
+    else:
+        log(f"model-axis training (d): train_binarizer -mesh 1x2 over 2 "
+            f"cards was NOT run: this machine has "
+            f"{torch.cuda.device_count()} card")
+    numbers["wall_s"] = time.perf_counter() - t0
+    log(f"model-axis training: phase wall {numbers['wall_s']:.3f} s; "
+        f"launches {launches}; on {card}")
+    return launches, numbers
+
+
 def main():
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(REPO, "lecturemath_tpu_torch")):
@@ -5528,6 +5982,7 @@ def main():
     editors_launches, editors = empty()
     flagship_launches, flagship = empty()
     axis_launches, axis = empty()
+    axis_train_launches, axis_train = empty()
     try:
         conf, _ = make_workspace()
         launches, summary = run(
@@ -5562,6 +6017,9 @@ def main():
         axis_launches, axis = run(
             "15 model axis",
             lambda: phase_model_axis(conf, counters, summary, card), empty())
+        axis_train_launches, axis_train = run(
+            "16 model axis for training",
+            lambda: phase_model_axis_training(counters, card), empty())
     except Exception:  # noqa: BLE001 — report every phase, then fail
         traceback.print_exc()
         failures.append("workspace")
@@ -5587,7 +6045,8 @@ def main():
                 "tooling": tooling_launches.get(name, 0),
                 "editors": editors_launches.get(name, 0),
                 "flagship": flagship_launches.get(name, 0),
-                "model_axis": axis_launches.get(name, 0)}
+                "model_axis": axis_launches.get(name, 0),
+                "model_axis_training": axis_train_launches.get(name, 0)}
     for key in SERVING_KERNELS:
         if key in records and serving:
             device_us = {bucket: numbers["device_us"]
@@ -5625,6 +6084,10 @@ def main():
     if axis:
         log(f"model axis on {card}: " + json.dumps(
             {key: value for key, value in axis.items()
+             if key != "two_cards"}))
+    if axis_train:
+        log(f"model-axis training on {card}: " + json.dumps(
+            {key: value for key, value in axis_train.items()
              if key != "two_cards"}))
     log(f"express {summary.get('fps', 0):.2f} fps on {card}")
     walls["all"] = time.perf_counter() - t_start

@@ -10,8 +10,8 @@ model's channels over M devices of each data position (the model axis,
 parallel/model_axis.py; D·M cards, or D·M CPU shards with ``-device
 cpu``). Under the LM_COORDINATOR / LM_NUM_PROCESSES / LM_PROCESS_ID
 contract the same CLI on every host joins one world and the mesh spans
-every process's devices. Training over the model axis is not ported yet
-(ROADMAP queue 1, item 10b).
+every process's devices. The training CLIs take ``-mesh DxM`` too
+(cli/train_binarizer.py).
 """
 
 import sys

@@ -8,8 +8,7 @@ Usage: python -m lecturemath_tpu_torch.cli.run_pipeline <config>
 ``-mesh D`` / TPU_MESH shard stage 01's frames over D devices, ``-mesh
 DxM`` also the model's channels over M devices of each data position, and
 the LM_* env contract joins the processes of several hosts, as for the
-stage-01 CLI (cli/binarize.py); training over the model axis is not
-ported yet (ROADMAP queue 1, item 10b). Without a mesh,
+stage-01 CLI (cli/binarize.py). Without a mesh,
 DEVICE_WORKER_RECYCLE_MB > 0 runs stage 01 in a
 recycled device worker process (pipeline/device_worker.py), one shared by
 every lecture of the run.

@@ -1,7 +1,7 @@
 """TD-PT: pretrain all three branches on text-detection data.
 
 Usage: python -m lecturemath_tpu_torch.cli.train_text_detector <config>
-[-device cpu] [-mesh D]
+[-device cpu] [-mesh D|DxM]
 (reference equivalent: lecturenet_train_01_pretrain_text_detector.py.)
 Trains on the card unless ``-device cpu`` is given; without a card it
 raises.
@@ -11,11 +11,16 @@ device: without LM_COORDINATOR this process starts D workers of itself on
 this host (parallel/launch.py), each on one card through
 CUDA_VISIBLE_DEVICES (or on the CPU with ``-device cpu``), and exits with
 the first non-zero code of theirs; under the LM_* contract (a process per
-card on each host) it joins that world. Only process 0 writes the
-checkpoints, ``.bak`` files and resume file, the others waiting at a
-barrier: unlike the JAX package, whose processes each write the same
-bytes, processes sharing one file system would tear the file. ``-mesh
-DxM`` with M > 1 raises (ROADMAP queue 1, item 10b).
+card on each host) it joins that world. ``-mesh DxM`` also shards the
+model's channels over M devices of each data position, as the JAX
+package's trainer does (train/trainer.py): ``-mesh 1xM`` trains in this
+process over M cards (or M CPU shards with ``-device cpu``); with D > 1
+it starts D x M workers, one card each (on the CPU D workers of M shards
+each). Live BatchNorms normalize over the data group, the processes that
+hold the same channels. Only process 0 writes the checkpoints, ``.bak``
+files and resume file, each holding the full model, the others waiting at
+a barrier: unlike the JAX package, whose processes each write the same
+bytes, processes sharing one file system would tear the file.
 """
 
 import os

@@ -411,7 +411,9 @@ _CONV_BN_BLOCKS = ([f"conv_down_block_{i}" for i in range(1, 6)]
 
 
 def fold_batch_norms(state_dict: Dict[str, torch.Tensor], eps: float = 1e-5,
-                     differentiable: bool = False) -> Dict[str, torch.Tensor]:
+                     differentiable: bool = False,
+                     deconv_scales: Optional[Dict[str, torch.Tensor]] = None
+                     ) -> Dict[str, torch.Tensor]:
     """Fold every inference BatchNorm affine into the preceding conv/deconv
     weight+bias: y = a*(conv(x)+bias-mean)+b == conv'(x) with weight*a and
     bias a*(bias-mean)+b, in f32. Returns the state dict of a model built
@@ -421,9 +423,18 @@ def fold_batch_norms(state_dict: Dict[str, torch.Tensor], eps: float = 1e-5,
     ``differentiable``: keep the autograd graph, so a training step that
     runs the folded model on the result (frozen running statistics; the JAX
     package's ``fold_batch_norms(xp=jnp)`` inside its step) sends the
-    gradients back to the original conv and BN parameters."""
+    gradients back to the original conv and BN parameters.
+
+    ``deconv_scales``: for a model-axis shard (``shard_params``), the
+    scale ``a`` of every output channel of a transposed conv (by the
+    conv's name) whose BN the shard holds only a slice of: the shard's
+    deconv weight holds all output channels (it is cut on its inputs), so
+    it takes the whole scale, gathered over the model group
+    (``parallel/model_axis.py fold_shards``), while its bias, cut like the
+    BN, folds with the local slice."""
     sd = {key: (value if differentiable else value.detach()).float()
           for key, value in state_dict.items()}
+    deconv_scales = deconv_scales or {}
     out: Dict[str, torch.Tensor] = {}
 
     def fold(conv: str, bn: str, out_axis: int) -> None:
@@ -433,7 +444,8 @@ def fold_batch_norms(state_dict: Dict[str, torch.Tensor], eps: float = 1e-5,
         shape = [1] * kernel.dim()
         shape[out_axis] = -1
         bias = sd.get(f"{conv}.bias", torch.zeros_like(a))
-        out[f"{conv}.weight"] = kernel * a.reshape(shape)
+        out[f"{conv}.weight"] = kernel * deconv_scales.get(conv, a).reshape(
+            shape)
         out[f"{conv}.bias"] = a * bias + shift
 
     # reconstruction-mode checkpoints lack the text/pixel/out heads

@@ -1,14 +1,21 @@
-"""Local launch of a data-parallel training CLI: ``-mesh D`` with D > 1 in a
-single process starts D processes of the same CLI on this host, one device
-each, under the LM_* env contract of ``parallel/mesh.py``.
+"""Local launch of a training CLI over a mesh: ``-mesh D`` or ``-mesh DxM``
+with D > 1 in a single process starts processes of the same CLI on this
+host under the LM_* env contract of ``parallel/mesh.py``.
 
-Training drives one card a process (the DDP idiom), so a CLI that is asked
-for D devices and has not joined a world (no LM_COORDINATOR) becomes the
-launcher: worker k gets ``LM_PROCESS_ID = k`` and, on the card,
-``CUDA_VISIBLE_DEVICES`` naming the k-th card this process sees. The
-launcher waits for the workers and returns the first non-zero exit code;
-when a worker fails it stops the others, which would otherwise wait for it
-in a collective.
+Training drives one data position a process, and one card a process in a
+world of several (the DDP idiom: autograd runs one thread a card, so the
+collectives of a backward on several cards of one process could reach
+their peers in another order). So a CLI that is asked for a mesh of
+several data positions and has not joined a world (no LM_COORDINATOR)
+becomes the launcher: on the CPU it starts D workers, each holding its
+data position's M CPU shards; on cards D x M workers, one card each, the
+M of a model group joined by its sub-group (``make_mesh``). Worker k gets
+``LM_PROCESS_ID = k`` and, on the card, ``CUDA_VISIBLE_DEVICES`` naming
+the k-th card this process sees. A mesh of one data position (``-mesh
+1xM``) trains in this process, over M cards or M CPU shards. The launcher
+waits for the workers and returns the first non-zero exit code; when a
+worker fails it stops the others, which would otherwise wait for it in a
+collective.
 """
 
 from __future__ import annotations
@@ -22,7 +29,7 @@ from typing import List, Optional, Sequence, Union
 
 import torch
 
-from .mesh import MODEL_AXIS_NOT_PORTED, MeshSpec
+from .mesh import MeshSpec
 
 PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -46,21 +53,24 @@ def visible_cards() -> List[str]:
 def workers_needed(spec: Optional[MeshSpec],
                    device: Union[None, str, torch.device]) -> int:
     """How many worker processes a training CLI must start for ``spec``:
-    0 when it trains in this process (no mesh, a mesh of one device, or a
-    world already joined under LM_COORDINATOR)."""
+    0 when it trains in this process (no mesh, a mesh of one data
+    position, or a world already joined under LM_COORDINATOR); else D on
+    the CPU and D x M on cards (one card each). Raises when the mesh needs
+    more cards than this process sees."""
     if spec is None or os.environ.get("LM_COORDINATOR"):
         return 0
-    if spec.model > 1:
-        raise NotImplementedError(MODEL_AXIS_NOT_PORTED)
     cpu = device is not None and torch.device(device).type == "cpu"
+    model = max(1, spec.model)
     if spec.data > 0:
-        n = spec.data
+        data = spec.data
     else:
-        n = 1 if cpu else torch.cuda.device_count()
-    if not cpu and n > len(visible_cards()):
-        raise ValueError(f"mesh {n}x1 needs {n} devices, have "
-                         f"{len(visible_cards())}")
-    return n if n > 1 else 0
+        data = 1 if cpu else max(1, torch.cuda.device_count() // model)
+    if not cpu and data * model > len(visible_cards()):
+        raise ValueError(f"mesh {data}x{model} needs {data * model} "
+                         f"devices, have {len(visible_cards())}")
+    if data <= 1:
+        return 0
+    return data if cpu else data * model
 
 
 def launch_local(module: str, args: Sequence[str], n: int,

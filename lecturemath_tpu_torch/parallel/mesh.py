@@ -11,8 +11,8 @@ sets ``CUDA_VISIBLE_DEVICES``), and processes join one world through the JAX
 package's env contract (``LM_COORDINATOR``, ``LM_NUM_PROCESSES``,
 ``LM_PROCESS_ID``): NCCL between cards, gloo on the CPU. Where a model
 group spans processes, ``make_mesh`` creates the sub-groups its collectives
-run in. Training over the model axis is not ported yet and raises: ROADMAP
-queue 1, item 10b.
+run in. Training shards over the model axis as inference's channel use
+does (``shard_params``; ``gather_params`` assembles the full state).
 """
 
 from __future__ import annotations
@@ -24,11 +24,6 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
-
-MODEL_AXIS_NOT_PORTED = ("training over the mesh 'model' axis (-mesh DxM "
-                         "with M > 1) is not ported yet; inference is "
-                         "(ROADMAP queue 1, item 10b)")
-
 
 @dataclass(frozen=True)
 class MeshSpec:
@@ -157,8 +152,11 @@ class Mesh:
     the devices of every process, which the mesh may use only part of.
     ``model_group``: the ``torch.distributed`` group of the processes that
     share this process's model group, where one spans processes (else
-    None); ``data_group``: the group a batch's rows are gathered over (None:
-    the world)."""
+    None); ``data_group``: the group a shard's rows are reduced and
+    gathered over (cross-replica BN, losses, gradients, inference's
+    results): the processes holding the same model indices at the other
+    data positions where a model group spans processes, else the world
+    (None in a process without ``torch.distributed``)."""
     shape: Dict[str, int]
     devices: Tuple[Tuple[int, torch.device], ...]
     local_devices: Tuple[torch.device, ...]
@@ -227,12 +225,17 @@ def make_mesh(spec: MeshSpec = MeshSpec(),
 
 
 def _model_axis_groups(spec: MeshSpec, chosen, world: int):
-    """(model group, data group) of this process for a model axis whose
-    groups span processes; (None, None) otherwise. A process's devices
-    must hold whole model groups, or an equal part of one."""
+    """(model group, data group) of this process: the sub-groups of a model
+    axis whose groups span processes; else (None, the world), or (None,
+    None) without ``torch.distributed``. A process's devices must hold
+    whole model groups, or an equal part of one."""
+    import torch.distributed as dist
+
     model = spec.model
+    whole = (None, dist.group.WORLD if dist.is_available()
+             and dist.is_initialized() else None)
     if model <= 1 or world <= 1:
-        return None, None
+        return whole
     held = [sum(1 for p, _ in chosen if p == process)
             for process in range(world)]
     per = held[0]
@@ -245,9 +248,7 @@ def _model_axis_groups(spec: MeshSpec, chosen, world: int):
             f"equal part of one")
     span = max(1, model // per)   # processes a model group spans
     if span == 1:
-        return None, None
-    import torch.distributed as dist
-
+        return whole
     # creating a group is collective and each holds communicators, so a
     # world makes the pair of a span once, however often the mesh is made
     key = (id(dist.group.WORLD), world, span)
@@ -420,15 +421,11 @@ def shard_params(mesh: Mesh, module: torch.nn.Module
     specs = params_pspec_tree(state, mesh)
     first = mesh.first_local_index
     shards = []
-    for k, device in enumerate(mesh.local_devices):
-        index = (first + k) % model
+    for k, (device, parts) in enumerate(zip(mesh.local_devices,
+                                            shard_state(mesh, state))):
         memo = {}
         for name, value in state.items():
-            part = value.detach()
-            if specs[name]:
-                size = part.shape[0] // model
-                part = part[index * size:(index + 1) * size]
-            part = part.to(device).clone()
+            part = parts[name].detach().to(device).clone()
             memo[id(value)] = (torch.nn.Parameter(
                 part, requires_grad=value.requires_grad)
                 if isinstance(value, torch.nn.Parameter) else part)
@@ -436,10 +433,70 @@ def shard_params(mesh: Mesh, module: torch.nn.Module
         shard = copy.deepcopy(module, memo)
         if hasattr(shard, "_head_packs"):
             shard._head_packs = {}
-        shard.model_index, shard.model_size = index, model
+        shard.model_index, shard.model_size = (first + k) % model, model
         shard.model_specs = specs
         shards.append(shard)
     return shards
+
+
+def shard_state(mesh: Mesh, state: Dict[str, torch.Tensor]
+                ) -> List[Dict[str, torch.Tensor]]:
+    """``shard_params``'s cut of a full ``state`` (a state dict, or any
+    tensors by parameter name, e.g. momentum buffers): one dict a local
+    device, each tensor that ``params_pspec_tree`` shards cut to that
+    device's model index (a view), the others whole, where they lie."""
+    model = mesh.shape.get("model", 1)
+    specs = params_pspec_tree(state, mesh)
+    first = mesh.first_local_index
+    parts = []
+    for k in range(len(mesh.local_devices)):
+        index = (first + k) % model
+        part = {}
+        for name, value in state.items():
+            if specs[name]:
+                size = value.shape[0] // model
+                value = value[index * size:(index + 1) * size]
+            part[name] = value
+        parts.append(part)
+    return parts
+
+
+def gather_params(mesh: Mesh, shards: Sequence[torch.nn.Module],
+                  states: Optional[Sequence[Dict[str, torch.Tensor]]] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """The inverse of ``shard_params``: the full state dict of the model
+    whose model group's shards this process holds (one data position's:
+    ``shards``, in model order), detached, on the CPU. A tensor that the
+    shards' ``model_specs`` cut is concatenated on axis 0 in model order,
+    over ``mesh.model_group`` too where the group spans processes (a
+    collective: every process of the group calls it); a replicated one is
+    taken once, from the first shard. ``states``: other tensors by
+    parameter name to assemble the same way, one dict a shard (momentum
+    buffers), in place of the shards' own parameters and buffers."""
+    if states is None:
+        states = []
+        for shard in shards:
+            state = dict(shard.named_parameters())
+            state.update(shard.named_buffers())
+            states.append(state)
+    specs = shards[0].model_specs
+    out = {}
+    for name, value in states[0].items():
+        if not specs[name]:
+            out[name] = value.detach().cpu().clone()
+            continue
+        local = torch.cat([state[name].detach().to(mesh.device)
+                           for state in states])
+        if mesh.model_group is not None:
+            import torch.distributed as dist
+
+            received = [torch.empty_like(local) for _ in range(
+                dist.get_world_size(mesh.model_group))]
+            dist.all_gather(received, local.contiguous(),
+                            group=mesh.model_group)
+            local = torch.cat(received)
+        out[name] = local.cpu()
+    return out
 
 
 def warmup_collectives(mesh: Mesh) -> None:
@@ -454,7 +511,7 @@ def warmup_collectives(mesh: Mesh) -> None:
         return
     groups = [None] + [group for group in (mesh.model_group,
                                             mesh.data_group)
-                       if group is not None]
+                       if group not in (None, dist.group.WORLD)]
     for group in groups:
         probe = torch.ones(1, device=mesh.device)
         dist.all_reduce(probe, group=group)

@@ -1,5 +1,6 @@
-"""The mesh's 'model' axis for inference: the collectives GSPMD inserts in
-the JAX package (``lecturemath_tpu/parallel/inference.py``), written out.
+"""The mesh's 'model' axis: the collectives GSPMD inserts in the JAX
+package (``lecturemath_tpu/parallel/inference.py`` for inference, its
+``train/trainer.py`` sharded state for training), written out.
 
 The axis is used in one of two ways, as there:
 
@@ -12,7 +13,8 @@ The axis is used in one of two ways, as there:
     order. The transposed convs shard on their INPUT channels, as the JAX
     package lays them out, so their shards' partial products are summed
     before the bias. Replicated layers run whole on every shard, and every
-    shard ends with the same logits.
+    shard ends with the same logits. Training runs this path too
+    (``ChannelShards``; ``fold_shards`` for the frozen-BN fold).
   * height (``forward_height_sharded``): every shard holds the whole model
     and a slab of rows. Slabs split at multiples of 32 rows, so every 2x2
     pool and stride-2 transposed conv stays inside one. Before each k x k
@@ -21,7 +23,8 @@ The axis is used in one of two ways, as there:
     the halo rows and pad only the width (``_block(..., halo=True)``), so
     every slab stays a dense channels_last tensor: a cropped, strided one
     sends ``torch.cat`` to its slow generic kernel. A shard may hold no rows
-    (two 32-row units over four shards), and then computes nothing.
+    (two 32-row units over four shards), and then computes nothing. As in
+    the JAX package, this use is for inference only.
 
 A model group is one data position's M shards. The shards this process
 holds run in turn in this thread. Where the group spans processes, its
@@ -30,19 +33,63 @@ slices and halo rows travel by all_gather, partial products by all_reduce,
 and every process of the group meets these collectives in the same order,
 so none can deadlock. ``FCNLectureNet.network`` is the one description of
 the network that both paths run.
+
+Gradients. Every collective here is differentiable, and its backward is
+its adjoint: a gather's backward sums the gradient of the gathered tensor
+over every shard of the group that received it and keeps each shard's own
+channels (a reduce-scatter; in one process autograd sums the shards'
+copies itself), and the partial products' sum sends each shard the sum of
+the group's gradients of the result (an all_reduce). The loss convention
+that makes the gradients the meshless ones: each process computes the loss
+once, from its first local shard's logits (every shard's logits are the
+same), and weights it by its share of the group's shards (``n_local /
+M``; 1 where a process holds the whole group). Then the loss the group
+differentiates is the meshless loss, so a sharded tensor's gradient is the
+meshless gradient of its slice as autograd leaves it, and a replicated
+tensor's meshless gradient is the SUM of its copies' gradients over the
+group (a copy feeds only its own shard's replicated layers): the trainer
+sums them and gives every copy the sum (``train/trainer.py``).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
 import torch
+import torch.nn as nn
 import torch.nn.functional as F
 
-from ..models.fcn_lecturenet import FCNLectureNet
+from ..models.fcn_lecturenet import FCNLectureNet, fold_batch_norms
 from ..ops.postprocess import threshold_pack, threshold_pack_plain
+from .sync_norm import all_reduce_sum
 
 UNIT = 32   # rows of a slab unit: five 2x2 pools divide it
+
+
+class _AllGather(torch.autograd.Function):
+    """``local`` (this process's parts, stacked) from every process of
+    ``group``, concatenated in group order. The backward is the adjoint, a
+    reduce-scatter: the gradient summed over the group, this process's
+    rows kept."""
+
+    @staticmethod
+    def forward(ctx, local, group):
+        import torch.distributed as dist
+
+        ctx.group, ctx.rank = group, dist.get_rank(group)
+        received = [torch.empty_like(local)
+                    for _ in range(dist.get_world_size(group))]
+        dist.all_gather(received, local.contiguous(), group=group)
+        return torch.cat(received)
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        total = grad.contiguous().clone()
+        dist.all_reduce(total, group=ctx.group)
+        rows = total.shape[0] // dist.get_world_size(ctx.group)
+        return total[ctx.rank * rows:(ctx.rank + 1) * rows], None
 
 
 class ModelGroup:
@@ -66,13 +113,8 @@ class ModelGroup:
         order: this process's own, or all of the group's gathered."""
         if self.group is None:
             return parts
-        import torch.distributed as dist
-
         local = torch.stack([p.to(self.devices[0]) for p in parts])
-        received = [torch.empty_like(local)
-                    for _ in range(dist.get_world_size(self.group))]
-        dist.all_gather(received, local.contiguous(), group=self.group)
-        return [r[k] for r in received for k in range(len(parts))]
+        return list(_AllGather.apply(local, self.group).unbind(0))
 
     def all_gather(self, parts: List[torch.Tensor]
                    ) -> List[List[torch.Tensor]]:
@@ -87,9 +129,7 @@ class ModelGroup:
         for part in parts[1:]:
             total = total + part.to(self.devices[0])
         if self.group is not None:
-            import torch.distributed as dist
-
-            dist.all_reduce(total, group=self.group)
+            total = all_reduce_sum(total, self.group)
         return [total.to(device) for device in self.devices]
 
     def gather_rows(self, parts: List[torch.Tensor], rows: Sequence[int],
@@ -170,14 +210,66 @@ class ChannelLayers:
 
 def forward_channel_sharded(shards: Sequence[FCNLectureNet],
                             x: torch.Tensor, group=None):
-    """The model's (bin_logits, text_logits, rec) of the model input ``x``
-    (B, 3, H, W), computed by the channel shards of one model group
-    (``shard_params``; this process's, joined by ``group`` to the rest),
-    on the first shard's device."""
+    """The model's output on the model input ``x`` (B, 3, H, W):
+    (bin_logits, text_logits, rec), or rec alone for a reconstruction-mode
+    model, computed by the channel shards of one model group
+    (``shard_params``; this process's, joined by ``group`` to the rest) and
+    taken from the first local shard, on its device. Differentiable: see
+    the module's note on gradients."""
     model_group = ModelGroup(shards, group)
     xs = [x.to(device) for device in model_group.devices]
-    bins, texts, recs = shards[0].network(ChannelLayers(model_group), xs)
-    return bins[0], texts[0], recs[0]
+    outputs = shards[0].network(ChannelLayers(model_group), xs)
+    if isinstance(outputs, list):   # rec of each shard
+        return outputs[0]
+    return tuple(each[0] for each in outputs)
+
+
+class ChannelShards(nn.Module):
+    """The channel shards this process holds of one model group, as one
+    module whose forward is ``forward_channel_sharded`` (``group``: the
+    model group's process group, None where every shard is here). The
+    trainer runs it on the live shards, and through
+    ``torch.func.functional_call`` on structures of ``fold_bn`` shards
+    with the weights ``fold_shards`` folds."""
+
+    def __init__(self, shards: Sequence[FCNLectureNet], group=None):
+        super().__init__()
+        self.shards = nn.ModuleList(shards)
+        self.group = group
+
+    def forward(self, x: torch.Tensor):
+        return forward_channel_sharded(list(self.shards), x, self.group)
+
+
+def fold_shards(shards: Sequence[FCNLectureNet], group=None,
+                eps: float = 1e-5) -> List[Dict[str, torch.Tensor]]:
+    """The frozen BatchNorms of each local shard folded into its convs,
+    with the autograd graph (``fold_batch_norms(differentiable=True)``):
+    one state dict of a ``fold_bn`` model a shard. A conv block folds
+    locally, its BN cut on the conv's output channels alike. A transposed
+    conv's weight is cut on its INPUT channels and holds all its outputs,
+    so the scale of its BN, cut on the outputs, is gathered over the model
+    group (with gradient) before it scales the shard's weight; the folded
+    bias a * bias + shift stays local (both cut on the outputs)."""
+    model_group = ModelGroup(shards, group)
+    specs = shards[0].model_specs
+    states = []
+    for shard in shards:
+        state = dict(shard.named_parameters())
+        state.update(shard.named_buffers())
+        states.append(state)
+    scales: List[Dict[str, torch.Tensor]] = [{} for _ in shards]
+    for level in range(1, 6):
+        bn = f"upsample_block_{level}.0"
+        if not specs[f"{bn}.weight"]:
+            continue
+        parts = [s[f"{bn}.weight"].float() / torch.sqrt(
+            s[f"{bn}.running_var"].float() + eps) for s in states]
+        for scale, gathered in zip(scales, model_group.all_gather(parts)):
+            scale[f"transposed_conv_{level}"] = torch.cat(gathered)
+    return [fold_batch_norms(state, eps, differentiable=True,
+                             deconv_scales=scale)
+            for state, scale in zip(states, scales)]
 
 
 def slab_rows(height: int, size: int) -> List[int]:
@@ -348,6 +440,6 @@ def packed_height_sharded(shards: Sequence[FCNLectureNet], x: torch.Tensor,
     return model_group.gather_rows(packed, valid, 1)
 
 
-__all__ = ["ModelGroup", "ChannelLayers", "HeightLayers",
-           "forward_channel_sharded", "forward_height_sharded",
+__all__ = ["ModelGroup", "ChannelLayers", "ChannelShards", "HeightLayers",
+           "fold_shards", "forward_channel_sharded", "forward_height_sharded",
            "packed_height_sharded", "height_slabs", "slab_rows"]

@@ -26,7 +26,23 @@ Options that carry over:
     (parallel/sync_norm.py), weighted loss terms are global ratios
     (train/losses.py), gradients are all-reduced and averaged before the
     clip, so every process takes the same step the JAX package's
-    data-sharded step takes.
+    data-sharded step takes;
+  * a model axis (``-mesh DxM``, M > 1): the parameters are cut over the
+    model axis as the JAX package's ``params_pspec_tree`` lays them out
+    (``shard_params``), and the step runs the channel-sharded network
+    (parallel/model_axis.py, whose note sets out the loss convention that
+    makes the gradients exact). The rows, the cross-replica BN, the
+    weighted ratios and the gradient average go over the data group
+    (``Mesh.data_group``): a model group's shards hold different channels
+    of the same rows. A replicated tensor's copies get the sum of their
+    gradients over the model group; the clip's global norm counts a sharded
+    gradient's squares over the group and a replicated one once. A process
+    drives one data position: all its M shards (one card shared by them,
+    M cards, or M CPU shards), or an equal part of a model group that spans
+    processes; in a ``torch.distributed`` world, one card at most.
+    Checkpoints and resume files hold the assembled full state
+    (``gather_params``), so they load meshless, on any mesh and in the JAX
+    package.
 
 The heads train through ``F.conv2d`` (kernel K2 has no backward;
 ``FCNLectureNet._head``). The JAX package's space-to-depth layouts
@@ -50,24 +66,33 @@ from ..core.device import resolve_device
 from ..models.convert import load_checkpoint, save_checkpoint
 from ..models.fcn_lecturenet import (FCNConfig, FCNLectureNet,
                                      fold_batch_norms, init_weights)
-from ..parallel.mesh import (MODEL_AXIS_NOT_PORTED, Mesh, MeshSpec,
-                             check_mesh, initialize_distributed_from_env,
-                             make_mesh, mesh_devices, process_rows,
+from ..parallel.mesh import (Mesh, MeshSpec, check_mesh, gather_params,
+                             initialize_distributed_from_env,
+                             local_model_groups, make_mesh, mesh_devices,
+                             process_rows, shard_params, shard_state,
                              warmup_collectives)
+from ..parallel.model_axis import ChannelShards, fold_shards
 from .losses import phase_losses
 
 _DTYPES = {"fp32": torch.float32, "float32": torch.float32,
            "bf16": torch.bfloat16, "bfloat16": torch.bfloat16}
 
 
-def clip_by_global_norm_(parameters, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(parameters, max_norm: float,
+                         norm: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """optax's ``clip_by_global_norm`` on the gradients, in place: where
     the global norm |g| reaches ``max_norm``, each gradient becomes
-    g / |g| * max_norm. Returns |g| (on the device, no sync)."""
+    g / |g| * max_norm. ``norm``: |g| where the parameters hold more than
+    the model (a model axis's copies), else computed from them. Returns |g|
+    (on the device, no sync)."""
     grads = [p.grad for p in parameters if p.grad is not None]
-    norm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+    if norm is None:
+        norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in grads))
     for g in grads:
-        g.copy_(torch.where(norm < max_norm, g, g / norm * max_norm))
+        g.copy_(torch.where(norm < max_norm, g, g / norm.to(g.device)
+                            * max_norm))
     return norm
 
 
@@ -85,62 +110,99 @@ class Trainer:
         uploaded ahead on a producer thread (train/prefetch.py); 0 loads
         synchronously.
 
-        ``mesh``: a data-axis mesh with one device in this process (one
-        card a process), which replaces ``device``. In a joined
-        ``torch.distributed`` world the steps are data-parallel over it;
-        without one (a 1x1 mesh in a single process) they are the plain
-        steps."""
+        ``mesh`` replaces ``device``. On a data-axis mesh this process
+        holds one device (one card a process); in a joined
+        ``torch.distributed`` world the steps are data-parallel over it,
+        and without one (a 1x1 mesh in a single process) they are the plain
+        steps. On a model axis (M > 1) this process holds one data
+        position's shards (``shard_params`` cuts ``model``, which stays
+        where it is): ``shards`` lists them and ``model`` is the first."""
         if fold_frozen_bn and not freeze_bn:
             raise ValueError("fold_frozen_bn requires freeze_bn (the fold "
                              "is only exact with frozen stats)")
         self.mesh = mesh
         self._group = None
+        axis = mesh is not None and mesh.shape.get("model", 1) > 1
         if mesh is not None:
             check_mesh(mesh)
-            if mesh.shape.get("model", 1) > 1:
-                raise NotImplementedError(MODEL_AXIS_NOT_PORTED)
-            if len(mesh.local_devices) != 1:
+            held = len(mesh.local_devices)
+            if len(local_model_groups(mesh)) != 1:
                 raise ValueError(
-                    f"data-parallel training drives one device a process, "
-                    f"and this process holds {len(mesh.local_devices)} of "
-                    f"the mesh: start one process a card (the training "
-                    f"CLIs do so for -mesh D without LM_COORDINATOR; "
-                    f"across hosts set CUDA_VISIBLE_DEVICES per process)")
+                    f"data-parallel training drives one device a process "
+                    f"(one data position's model shards on a model axis), "
+                    f"and this process holds {held} devices of "
+                    f"{len(local_model_groups(mesh))} data positions: start "
+                    f"one process a data position (the training CLIs do so "
+                    f"for -mesh D or DxM without LM_COORDINATOR; across "
+                    f"hosts set CUDA_VISIBLE_DEVICES per process)")
             import torch.distributed as dist
 
+            cards = {d for d in mesh.local_devices if d.type == "cuda"}
             if dist.is_available() and dist.is_initialized():
-                self._group = dist.group.WORLD
+                if len(cards) > 1:
+                    # autograd runs one thread a card, so the collectives
+                    # a backward issues would reach their peers in an
+                    # order that may differ between processes
+                    raise ValueError(
+                        f"a process of a torch.distributed world trains on "
+                        f"one card, and this one holds {len(cards)}: start "
+                        f"one process a card (-mesh DxM without "
+                        f"LM_COORDINATOR does so on cards)")
+                self._group = mesh.data_group
             self.device = mesh.device
         else:
             self.device = resolve_device(device)
-        self.model = model.to(self.device,
-                              memory_format=torch.channels_last)
-        self.model.bn_group = self._group
+        if axis:
+            self.shards = [shard.to(memory_format=torch.channels_last)
+                           for shard in shard_params(mesh, model)]
+        else:
+            self.shards = [model.to(self.device,
+                                    memory_format=torch.channels_last)]
+        self.model = self.shards[0]
+        self._axis = axis
+        for shard in self.shards:
+            shard.bn_group = self._group
+        # the share of the model group's loss this process backpropagates
+        # (parallel/model_axis.py's loss convention)
+        self._loss_share = (len(self.shards) / mesh.shape["model"]
+                            if axis else 1.0)
         self.phase = phase
         self.use_weights = use_weights
         self.freeze_bn = freeze_bn
         self.clip_norm = clip_norm
         self.prefetch_depth = prefetch_depth
-        self.optimizer = torch.optim.SGD(self.model.parameters(),
-                                         lr=learning_rate, momentum=momentum)
+        self.optimizer = torch.optim.SGD(
+            [p for shard in self.shards for p in shard.parameters()],
+            lr=learning_rate, momentum=momentum)
         self.step_count = 0
         self._fold_model = None
         if fold_frozen_bn:
             # the BN-free structure the folded weights run in; it holds no
             # weights of its own (functional_call supplies every one)
             with torch.device("meta"):
-                self._fold_model = FCNLectureNet(
+                folds = [FCNLectureNet(
                     model.config, model.reconstruction_mode, fold_bn=True,
-                    compute_dtype=model.compute_dtype)
+                    compute_dtype=model.compute_dtype) for _ in self.shards]
+            if axis:
+                for fold, shard in zip(folds, self.shards):
+                    fold.model_index, fold.model_size = (shard.model_index,
+                                                         shard.model_size)
+                    fold.model_specs = shard.model_specs
+                self._fold_model = ChannelShards(folds, mesh.model_group)
+            else:
+                self._fold_model = folds[0]
+        self._live = (ChannelShards(self.shards, mesh.model_group) if axis
+                      else self.model)
 
     # -------------------------------------------------------------- steps
 
     def _set_modes(self) -> None:
-        self.model.train()
-        if self.freeze_bn:
-            for module in self.model.modules():
-                if isinstance(module, nn.BatchNorm2d):
-                    module.eval()
+        for shard in self.shards:
+            shard.train()
+            if self.freeze_bn:
+                for module in shard.modules():
+                    if isinstance(module, nn.BatchNorm2d):
+                        module.eval()
 
     def to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str,
                                                                  torch.Tensor]:
@@ -159,14 +221,20 @@ class Trainer:
         return out
 
     def forward(self, image: torch.Tensor):
-        """The training forward: the live model, or with ``fold_frozen_bn``
-        the BN-free model on weights folded from the live ones (the fold is
-        part of the autograd graph)."""
+        """The training forward: the live model (the channel-sharded network
+        on a model axis), or with ``fold_frozen_bn`` the BN-free model on
+        weights folded from the live ones (the fold is part of the autograd
+        graph)."""
         if self._fold_model is None:
-            return self.model(image)
-        state = dict(self.model.named_parameters())
-        state.update(self.model.named_buffers())
-        folded = fold_batch_norms(state, differentiable=True)
+            return self._live(image)
+        if self._axis:
+            folded = {f"shards.{k}.{key}": value for k, state in enumerate(
+                fold_shards(self.shards, self.mesh.model_group))
+                for key, value in state.items()}
+        else:
+            state = dict(self.model.named_parameters())
+            state.update(self.model.named_buffers())
+            folded = fold_batch_norms(state, differentiable=True)
         return torch.func.functional_call(self._fold_model, folded, (image,))
 
     def step(self, batch) -> Dict[str, torch.Tensor]:
@@ -182,27 +250,87 @@ class Trainer:
         terms = phase_losses(self.phase, outputs, batch, self.use_weights,
                              self._group)
         total = sum(terms.values())
-        total.backward()
+        (total * self._loss_share if self._axis else total).backward()
         metrics = dict(terms, total=total)
+        if self._axis:
+            self._sum_replicated_gradients()
         if self._group is not None:
             self._average_gradients()
             metrics = self._global_means(metrics)
         if self.clip_norm is not None:
-            clip_by_global_norm_(self.model.parameters(), self.clip_norm)
+            clip_by_global_norm_(self._parameters(), self.clip_norm,
+                                 self._global_norm() if self._axis else None)
         self.optimizer.step()
         self.step_count += 1
         return {key: value.detach() for key, value in metrics.items()}
 
+    def _parameters(self):
+        """Every parameter this process trains, shard by shard."""
+        return [p for shard in self.shards for p in shard.parameters()]
+
+    def _replicated(self):
+        """(name, the copy of each local shard) of every parameter that the
+        model axis replicates."""
+        specs = self.model.model_specs
+        copies = [dict(shard.named_parameters()) for shard in self.shards]
+        return [(name, [c[name] for c in copies]) for name in copies[0]
+                if not specs[name]]
+
+    def _sum_replicated_gradients(self) -> None:
+        """Each replicated parameter's gradients summed over its copies in
+        the model group (the local shards', then over ``model_group`` in
+        one flat all-reduce), every copy getting the sum: the meshless
+        gradient (parallel/model_axis.py)."""
+        sums = []
+        for _, copies in self._replicated():
+            grads = [p.grad.to(self.device) for p in copies
+                     if p.grad is not None]
+            sums.append((copies, sum(grads) if grads else
+                         torch.zeros_like(copies[0], device=self.device)))
+        if self.mesh.model_group is not None and sums:
+            import torch.distributed as dist
+
+            flat = torch.cat([total.reshape(-1) for _, total in sums])
+            dist.all_reduce(flat, group=self.mesh.model_group)
+            sums = [(copies, part.view_as(total)) for (copies, total), part
+                    in zip(sums, flat.split([t.numel() for _, t in sums]))]
+        for copies, total in sums:
+            for p in copies:
+                p.grad = total.to(p.device, copy=True)
+
+    def _global_norm(self) -> torch.Tensor:
+        """The global gradient norm of the model on a model axis: a sharded
+        gradient's squares summed over the model group, a replicated one's
+        counted once."""
+        replicated = {name for name, _ in self._replicated()}
+        sharded, once = [], []
+        for k, shard in enumerate(self.shards):
+            for name, p in shard.named_parameters():
+                if p.grad is None or (name in replicated and k):
+                    continue
+                square = torch.sum(torch.square(p.grad.float())).to(
+                    self.device)
+                (once if name in replicated else sharded).append(square)
+        total = torch.stack(sharded).sum() if sharded else torch.zeros(
+            (), device=self.device)
+        if self.mesh.model_group is not None:
+            import torch.distributed as dist
+
+            dist.all_reduce(total, group=self.mesh.model_group)
+        if once:
+            total = total + torch.stack(once).sum()
+        return torch.sqrt(total)
+
     def _average_gradients(self) -> None:
-        """All-reduce every gradient in one flat buffer and divide by the
-        world size: each process then holds the gradient of the global
-        loss (see train/losses.py for the weighted terms)."""
+        """All-reduce every gradient in one flat buffer over the data group
+        and divide by its size: each process then holds the gradient of the
+        global loss (see train/losses.py for the weighted terms)."""
         import torch.distributed as dist
 
         # each gradient's memory as a flat view (channels_last ones too):
         # one cat, one all-reduce and one multi-tensor copy back
         views = []
-        for p in self.model.parameters():
+        for p in self._parameters():
             g = p.grad
             if g is None:
                 continue
@@ -217,7 +345,7 @@ class Trainer:
 
     def _global_means(self, metrics: Dict[str, torch.Tensor]
                       ) -> Dict[str, torch.Tensor]:
-        """Each loss term averaged over the processes: the global batch's
+        """Each loss term averaged over the data group: the global batch's
         value (a weighted term is already global on every process)."""
         import torch.distributed as dist
 
@@ -248,22 +376,61 @@ class Trainer:
 
     # -------------------------------------------------------- checkpoints
 
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's full state dict (a model axis's shards assembled by
+        ``gather_params``: a collective where a model group spans
+        processes)."""
+        if self._axis:
+            return gather_params(self.mesh, self.shards)
+        return self.model.state_dict()
+
+    def _writes(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
+
     def save(self, path: str) -> None:
         """The model's f32 state dict: a flax ``.msgpack`` the JAX package
-        reads for a ``.msgpack``/``.flax`` path, else a torch ``.dat``."""
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        save_checkpoint(self.model.state_dict(), path)
+        reads for a ``.msgpack``/``.flax`` path, else a torch ``.dat``.
+        Every process of a mesh calls it (``state_dict``); process 0
+        writes."""
+        state = self.state_dict()
+        if self._writes():
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            save_checkpoint(state, path)
 
     # full-state checkpoints (model, optimizer, step) for mid-training
     # resume, as torch.save files: not interchangeable with the JAX
-    # package's orbax directories (the card's machine has no orbax)
+    # package's orbax directories (the card's machine has no orbax). They
+    # hold the full model and optimizer state (the JAX package's orbax
+    # state holds full arrays too), so a run resumes on any mesh or none.
+
+    def _optimizer_state(self) -> dict:
+        """The optimizer's state dict in the full model's parameter order,
+        a model axis's momentum buffers assembled like their parameters
+        (collective like ``state_dict``)."""
+        state = self.optimizer.state_dict()
+        if not self._axis:
+            return state
+        names = [name for name, _ in self.model.named_parameters()]
+        n = len(names)
+        momenta = [{names[i]: state["state"][k * n + i]["momentum_buffer"]
+                    for i in range(n) if state["state"].get(k * n + i, {})
+                    .get("momentum_buffer") is not None}
+                   for k in range(len(self.shards))]
+        full = gather_params(self.mesh, self.shards, momenta)
+        return {"state": {i: {"momentum_buffer": full[name]}
+                          for i, name in enumerate(names) if name in full},
+                "param_groups": [dict(state["param_groups"][0],
+                                      params=list(range(n)))]}
 
     def save_resume_checkpoint(self, path: str) -> None:
-        partial = f"{path}.{os.getpid()}.tmp"
-        torch.save({"model": self.model.state_dict(),
-                    "optimizer": self.optimizer.state_dict(),
-                    "step": self.step_count}, partial)
-        os.replace(partial, path)
+        """Every process of a mesh calls it; process 0 writes."""
+        state = {"model": self.state_dict(),
+                 "optimizer": self._optimizer_state(),
+                 "step": self.step_count}
+        if self._writes():
+            partial = f"{path}.{os.getpid()}.tmp"
+            torch.save(state, partial)
+            os.replace(partial, path)
 
     def restore_resume_checkpoint(self, path: str) -> None:
         if os.path.isdir(path):
@@ -271,10 +438,28 @@ class Trainer:
                 f"{path} is a directory, an orbax checkpoint of the JAX "
                 f"package; the port resumes only from its own torch.save "
                 f"file (remove the directory to start the phase over)")
-        state = torch.load(path, map_location=self.device, weights_only=True)
-        self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        state = torch.load(path, map_location="cpu" if self._axis
+                           else self.device, weights_only=True)
         self.step_count = int(state["step"])
+        if not self._axis:
+            self.model.load_state_dict(state["model"])
+            self.optimizer.load_state_dict(state["optimizer"])
+            return
+        for shard, part in zip(self.shards,
+                               shard_state(self.mesh, state["model"])):
+            shard.load_state_dict(part)
+        names = [name for name, _ in self.model.named_parameters()]
+        saved = state["optimizer"]
+        momenta = shard_state(self.mesh, {
+            names[i]: value["momentum_buffer"]
+            for i, value in saved["state"].items()})
+        n = len(names)
+        self.optimizer.load_state_dict({
+            "state": {k * n + i: {"momentum_buffer": part[name]}
+                      for k, part in enumerate(momenta)
+                      for i, name in enumerate(names) if name in part},
+            "param_groups": [dict(saved["param_groups"][0],
+                                  params=list(range(len(self.shards) * n)))]})
 
 
 # ---------------------------------------------------------------- phases
@@ -357,12 +542,15 @@ def run_phase(config: Config, phase_name: str, dataset,
     configured output path. Runs on ``device``: ``cuda`` unless the caller
     passes ``cpu``.
 
-    ``mesh_spec``: data-parallel training over a mesh, one device a
-    process, the processes joined under the LM_* env contract
-    (``initialize_distributed_from_env``). Only process 0 writes the
-    checkpoints, the ``.bak`` files and the resume file; the others wait
-    at a barrier (the JAX package's processes each write the same bytes,
-    which processes sharing one file system would tear).
+    ``mesh_spec``: training over a mesh, one data position a process (its
+    devices, or on a model axis that spans processes a part of one), the
+    processes joined under the LM_* env contract
+    (``initialize_distributed_from_env``); a model axis (M > 1) shards the
+    parameters over it (``Trainer``). Only process 0 writes the
+    checkpoints, the ``.bak`` files and the resume file, all holding the
+    full model; the others wait at a barrier (the JAX package's processes
+    each write the same bytes, which processes sharing one file system
+    would tear).
     """
     spec = PHASES[phase_name]
     net_config = FCNConfig.from_config(config)
@@ -431,9 +619,9 @@ def run_phase(config: Config, phase_name: str, dataset,
                       device=device, mesh=mesh)
 
     def write(save) -> None:
-        """``save()`` on process 0 only; the others wait until it is done."""
-        if mesh is None or mesh.rank == 0:
-            save()
+        """``save()`` on every process (a model axis gathers its shards;
+        process 0 writes); the others wait until it is done."""
+        save()
         if mesh is not None and mesh.world_size > 1:
             import torch.distributed as dist
 
@@ -462,8 +650,9 @@ def run_phase(config: Config, phase_name: str, dataset,
             def backup(epoch=epoch):
                 trainer.save(out_path + f".epoch_{epoch + 1}.bak")
                 trainer.save_resume_checkpoint(resume_path)
-                with open(meta_path, "w") as f:
-                    json.dump({"completed_epochs": epoch + 1}, f)
+                if mesh is None or mesh.rank == 0:
+                    with open(meta_path, "w") as f:
+                        json.dump({"completed_epochs": epoch + 1}, f)
 
             write(backup)
 

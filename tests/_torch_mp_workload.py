@@ -45,10 +45,10 @@ def make_frames(n: int = 8):
     return rgb
 
 
-def start_state_dict():
+def start_state_dict(config=NET_CONFIG, reconstruction_mode=False):
     """Seeded weights with the BatchNorm affines and running statistics
     moved off identity (so the running-stat updates show)."""
-    model = tfcn.init_weights(tfcn.FCNLectureNet(NET_CONFIG),
+    model = tfcn.init_weights(tfcn.FCNLectureNet(config, reconstruction_mode),
                               torch.Generator().manual_seed(0))
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
@@ -168,3 +168,70 @@ def model_axis_logits(frames):
         x, (h, w) = model_input(torch.from_numpy(np.ascontiguousarray(
             frames)))
         return model.eval()(x)[0][:, 0, :h, :w].numpy()
+
+
+# ------------------------------------------------------ model-axis training
+
+# channel counts of which some divide by 2 and 4 and some do not: on 1x2 the
+# transposed convs 5-3 are cut on their inputs and outputs, 2 on its
+# outputs only, 1 on its inputs only; on 1x4 conv 5 on its inputs only, 4
+# on both, 3 on its outputs only, 2 and 1 not at all; the 3-channel
+# reconstruction and 1-channel logit heads are replicated on both, and on
+# 1x4 the 6-channel layers too
+AXIS_NET_CONFIG = tfcn.FCNConfig(
+    in_channels=3, down_filters=(4, 6, 8, 12, 16), mid_filters=16,
+    upsample_filters=(3, 6, 8, 8, 6), up_filters=(4, 6, 5, 6, 12),
+    pixel_features=(6, 4), kernel_size=3, pixel_kernel_size=3)
+
+# the model axis's training cases: Trainer options, and the phase
+AXIS_TRAIN_CASES = {
+    "live": dict(phase="binarizer"),
+    "frozen": dict(phase="binarizer", freeze_bn=True),
+    "folded": dict(phase="text_detector", freeze_bn=True,
+                   fold_frozen_bn=True),
+    "weighted": dict(phase="binarizer", use_weights=True),
+    "clipped": dict(phase="binarizer", use_weights=True, clip_norm=0.05),
+    "reconstruction": dict(phase="reconstruction"),
+}
+AXIS_MOMENTUM = 0.9
+
+
+def axis_train_batch():
+    """make_train_batch's arrays and a 3-channel median target (the
+    reconstruction and text-detector phases' target)."""
+    batch = make_train_batch()
+    rng = np.random.default_rng(8)
+    batch["median"] = rng.uniform(-1, 1, batch["image"].shape).astype(
+        np.float32)
+    return batch
+
+
+def axis_trainer(case, mesh=None):
+    """A Trainer of ``case`` over the seeded start weights of
+    AXIS_NET_CONFIG, meshless on the CPU or on ``mesh``, and its batch."""
+    from lecturemath_tpu_torch.train.trainer import Trainer
+
+    options = dict(AXIS_TRAIN_CASES[case])
+    rec = options["phase"] == "reconstruction"
+    model = tfcn.FCNLectureNet(AXIS_NET_CONFIG, reconstruction_mode=rec)
+    model.load_state_dict(start_state_dict(AXIS_NET_CONFIG, rec),
+                          strict=True)
+    trainer = Trainer(model, LEARNING_RATE, momentum=AXIS_MOMENTUM,
+                      prefetch_depth=0, device="cpu", mesh=mesh, **options)
+    batch = axis_train_batch()
+    if rec:
+        batch["target"] = batch["median"]
+    return trainer, batch
+
+
+def run_axis_training(case, mesh=None, steps=TRAIN_STEPS, checkpoint=None):
+    """``steps`` SGD steps of ``case`` on the global batch; returns
+    (per-step totals, the assembled final state as numpy). ``checkpoint``:
+    a path ``Trainer.save`` writes the result to (process 0 of a world)."""
+    trainer, batch = axis_trainer(case, mesh)
+    losses = [float(trainer.step(batch)["total"]) for _ in range(steps)]
+    if checkpoint is not None:
+        trainer.save(checkpoint)
+    state = {key: value.numpy().copy()
+             for key, value in trainer.state_dict().items()}
+    return losses, state

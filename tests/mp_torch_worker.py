@@ -2,8 +2,11 @@
 2-process gloo world of the port (one CPU device each, a 2x1 mesh; two
 each for a 4x1 mesh). It runs the sharded Binarizer on both meshes, both
 uses of the model axis and the Binarizer on 1x2 and 2x2 meshes, the
-cross-replica BatchNorm on its half of a batch, and the three data-parallel training cases of
-tests/_torch_mp_workload.py and saves what it got to LM_OUT_PATH (.npz).
+cross-replica BatchNorm on its half of a batch, the three data-parallel training cases of
+tests/_torch_mp_workload.py, and the model axis's training cases on 1x2
+(a model group spanning the processes) and 2x2 (a group in each), process
+0 writing each one's checkpoint, and saves what it got to LM_OUT_PATH
+(.npz).
 
 Launched as a subprocess, NOT a pytest module. Env contract:
 LM_COORDINATOR, LM_NUM_PROCESSES, LM_PROCESS_ID, LM_OUT_PATH.
@@ -24,6 +27,9 @@ from lecturemath_tpu_torch.parallel.mesh import (  # noqa: E402
     parse_mesh_arg, shutdown_distributed, warmup_collectives)
 
 import _torch_mp_workload as workload  # noqa: E402
+
+# the model axis's training cases the two processes run on 1x2 and 2x2
+AXIS_WORLD_CASES = ("live", "folded", "clipped")
 
 
 def main():
@@ -56,6 +62,13 @@ def main():
         again = make_mesh(spec, mesh_devices("cpu", spec))
         assert (again.model_group, again.data_group) == \
             (model_mesh.model_group, model_mesh.data_group)
+        for case in AXIS_WORLD_CASES:
+            losses, state = workload.run_axis_training(
+                case, model_mesh, checkpoint=os.environ["LM_OUT_PATH"]
+                + f".{text}.{case}.msgpack")
+            out[f"axis_{text}_{case}/losses"] = np.asarray(losses)
+            for key, value in state.items():
+                out[f"axis_{text}_{case}/{key}"] = value
     rows = slice(4 * mesh.rank, 4 * mesh.rank + 4)
     for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         got = workload.run_batch_norm(dtype, rows, dist.group.WORLD)

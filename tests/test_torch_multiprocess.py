@@ -15,6 +15,11 @@ JAX package's 8-device data-axis mesh (the conftest's virtual CPUs).
   gets every frame of the meshless port (binaries equal but at pixels
   whose logit lies within NEAR of the threshold); the same for the
   stage-01 Binarizer over seeded weights whose logits read every layer.
+- Training over the model axis on the same 1x2 and 2x2 meshes (live BN,
+  frozen BN folded, weighted terms with the clip): every process's losses
+  and assembled state equal the meshless port's within rtol 1e-5 / atol
+  1e-6, and the checkpoint process 0 alone writes loads in the JAX
+  package.
 - ``cli.binarize -mesh 2`` and ``-mesh 1x2`` run as 2 processes write the
   single-process CLI's artifact byte for byte; ``train_reconstruction -mesh 2`` in one
   process launches its 2 workers, and a failing worker fails the CLI.
@@ -94,9 +99,15 @@ def run_world(argv, n=2, extra_env=None, deadline_s=WORLD_DEADLINE_S):
 # ------------------------------------------------------------ the workload
 
 @pytest.fixture(scope="module")
-def world(tmp_path_factory):
+def world_dir(tmp_path_factory):
+    """Where the worker pair saves its results and checkpoints."""
+    return tmp_path_factory.mktemp("mp_torch")
+
+
+@pytest.fixture(scope="module")
+def world(world_dir):
     """The worker pair's saved results, one dict a process."""
-    out = tmp_path_factory.mktemp("mp_torch")
+    out = world_dir
     results = run_world([sys.executable, os.path.join(HERE,
                                                       "mp_torch_worker.py")],
                         extra_env={"LM_OUT_PATH": str(out / "p{rank}.npz")})
@@ -267,6 +278,41 @@ def test_data_parallel_steps_match_meshless_and_jax(world, case):
     assert not np.array_equal(
         world[0][f"{case}/conv_down_block_1.1.running_var"],
         start["conv_down_block_1.1.running_var"].numpy())
+
+
+@pytest.mark.parametrize("mesh_text", ["1x2", "2x2"])
+@pytest.mark.parametrize("case", ["live", "folded", "clipped"])
+def test_model_axis_training_across_processes(world, world_dir, mesh_text,
+                                              case):
+    """3 steps on 1x2 (the model group spans the processes: gathers,
+    partial sums, the fold's BN scales and the replicated gradients' sum
+    travel over gloo) and on 2x2 (a group in each process, the BN and the
+    gradient average over the data group): both processes get the
+    meshless losses and state, and process 0's checkpoint, the only one
+    written, holds that state in the JAX package."""
+    from lecturemath_tpu.pipeline.binarize import load_checkpoint_variables
+
+    losses, state = workload.run_axis_training(case)
+    for rank in range(2):
+        got = world[rank]
+        np.testing.assert_allclose(got[f"axis_{mesh_text}_{case}/losses"],
+                                   losses, rtol=RTOL,
+                                   err_msg=f"process {rank}")
+        for key, value in state.items():
+            np.testing.assert_allclose(
+                got[f"axis_{mesh_text}_{case}/{key}"], value, rtol=RTOL,
+                atol=ATOL, err_msg=f"process {rank} {key}")
+    written = [world_dir / f"p{rank}.npz.{mesh_text}.{case}.msgpack"
+               for rank in range(2)]
+    assert written[0].exists() and not written[1].exists()
+    loaded = state_dict_from_flax(load_checkpoint_variables(
+        str(written[0])))
+    assert "out_conv" not in loaded
+    for key, value in loaded.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        np.testing.assert_allclose(value.numpy(), state[key], rtol=RTOL,
+                                   atol=ATOL, err_msg=key)
 
 
 def test_weighted_loss_is_the_global_ratio(world):

@@ -3,9 +3,10 @@
 counts and row counts (the JAX side with its process count and index
 monkeypatched, as tests/test_parallel.py does), stage 01 through a
 4-replica CPU mesh, ``ShardedBinarizer``, and the model axis's entry
-points running for inference while training over it raises (ROADMAP queue
-1, item 10b; its numbers are tests/test_torch_model_axis.py's). fp32 on the
-CPU at TINY widths; the binaries are compared bit for bit."""
+points running for inference (its numbers are
+tests/test_torch_model_axis.py's) and for training (its numbers are
+tests/test_torch_model_axis_train.py's). fp32 on the CPU at TINY widths;
+the binaries are compared bit for bit."""
 
 import jax
 import jax.numpy as jnp
@@ -184,19 +185,48 @@ def test_sharded_binarizer_full_output(ragged, threshold_weights):
     assert not np.isin(got, (0, 255)).all()  # not thresholded
 
 
-def test_model_axis_raises_item_10b(threshold_weights):
-    """Training over the model axis is not ported: the Trainer and the
-    training CLIs' launcher raise, naming item 10b."""
-    from lecturemath_tpu_torch.parallel.launch import workers_needed
+def test_model_axis_raises_item_10b(threshold_weights, tmp_path,
+                                    monkeypatch):
+    """The name is kept from when training over the model axis raised.
+    Now the Trainer on a 1x2 CPU mesh trains (live BN, then frozen BN
+    folded) and writes the meshless checkpoint, and the training CLIs'
+    launcher starts D workers on the CPU and D x M on cards (one card
+    each), none for one data position, raising past the visible cards."""
+    from lecturemath_tpu_torch.models.convert import load_checkpoint
+    from lecturemath_tpu_torch.parallel import launch
     from lecturemath_tpu_torch.train.trainer import Trainer
 
     _, _, state_dict = threshold_weights
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        Trainer(_port_model(state_dict), 0.1,
-                mesh=tmesh.make_mesh(tmesh.MeshSpec(1, 2), [CPU] * 2))
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        workers_needed(tmesh.MeshSpec(2, 2), "cpu")
-    assert "training" in tmesh.MODEL_AXIS_NOT_PORTED
+    rng = np.random.default_rng(3)
+    batch = {"image": rng.uniform(-1, 1, (2, 32, 64, 3)).astype(np.float32),
+             "target": (rng.random((2, 32, 64, 1)) > 0.5).astype(np.float32),
+             "text_mask": (rng.random((2, 32, 64, 1)) > 0.5).astype(
+                 np.float32)}
+    for frozen in (False, True):
+        paths = []
+        for mesh in (None, tmesh.make_mesh(tmesh.MeshSpec(1, 2), [CPU] * 2)):
+            trainer = Trainer(_port_model(state_dict), 0.1, freeze_bn=frozen,
+                              fold_frozen_bn=frozen, prefetch_depth=0,
+                              device="cpu", mesh=mesh)
+            assert len(trainer.shards) == (1 if mesh is None else 2)
+            for _ in range(2):
+                trainer.step(batch)
+            paths.append(str(tmp_path / f"{frozen}_{mesh is None}.msgpack"))
+            trainer.save(paths[-1])
+        plain, sharded = (load_checkpoint(path) for path in paths)
+        assert sorted(sharded) == sorted(plain)
+        for key, value in plain.items():
+            np.testing.assert_allclose(sharded[key].numpy(), value.numpy(),
+                                       rtol=1e-5, atol=1e-6, err_msg=key)
+        assert not torch.equal(plain["conv_out.0.weight"],
+                               state_dict["conv_out.0.weight"])
+    assert launch.workers_needed(tmesh.MeshSpec(2, 2), "cpu") == 2
+    assert launch.workers_needed(tmesh.MeshSpec(1, 2), "cpu") == 0
+    monkeypatch.setattr(launch, "visible_cards", lambda: list("0123"))
+    assert launch.workers_needed(tmesh.MeshSpec(2, 2), None) == 4
+    assert launch.workers_needed(tmesh.MeshSpec(1, 4), None) == 0
+    with pytest.raises(ValueError, match="needs 6 devices, have 4"):
+        launch.workers_needed(tmesh.MeshSpec(3, 2), None)
 
 
 def test_model_axis_runs_for_inference(ragged, threshold_weights):
@@ -231,15 +261,16 @@ def test_model_axis_runs_for_inference(ragged, threshold_weights):
 
 
 def test_trainer_takes_one_device_a_process(threshold_weights):
-    """Data-parallel training is one device a process: a mesh with two
-    devices in this process is refused, a 1x1 mesh without a world trains
-    as without a mesh."""
+    """Data-parallel training is one device a process (one data position's
+    shards on a model axis): a mesh with two data positions in this process
+    is refused, a 1x1 mesh without a world trains as without a mesh."""
     from lecturemath_tpu_torch.train.trainer import Trainer
 
     _, _, state_dict = threshold_weights
-    with pytest.raises(ValueError, match="one device a process"):
-        Trainer(_port_model(state_dict), 0.1,
-                mesh=tmesh.make_mesh(tmesh.MeshSpec(2, 1), [CPU] * 2))
+    for spec in (tmesh.MeshSpec(2, 1), tmesh.MeshSpec(2, 2)):
+        with pytest.raises(ValueError, match="one device a process"):
+            Trainer(_port_model(state_dict), 0.1, mesh=tmesh.make_mesh(
+                spec, [CPU] * (spec.data * spec.model)))
     trainer = Trainer(_port_model(state_dict), 0.1,
                       mesh=tmesh.make_mesh(tmesh.MeshSpec(1, 1), [CPU]))
     assert trainer.device == CPU and trainer._group is None
