@@ -4,6 +4,7 @@ inter-stage PNG pickle relay. Stage 01 runs on the card unless
 
 Usage: python -m lecturemath_tpu_torch.cli.run_pipeline <config>
 [-l lecture] [-d dataset] [-shard i/n] [-save 1] [-mesh D|DxM] [-device cpu]
+[-trace dir]
 
 ``-mesh D`` / TPU_MESH shard stage 01's frames over D devices, ``-mesh
 DxM`` also the model's channels over M devices of each data position, and
@@ -11,7 +12,9 @@ the LM_* env contract joins the processes of several hosts, as for the
 stage-01 CLI (cli/binarize.py). Without a mesh,
 DEVICE_WORKER_RECYCLE_MB > 0 runs stage 01 in a
 recycled device worker process (pipeline/device_worker.py), one shared by
-every lecture of the run.
+every lecture of the run. ``-trace <dir>`` writes a torch profiler trace of
+the lectures, with the port's spans on its threads, to ``<dir>/trace.json``
+(``PipelineDriver.trace``).
 """
 
 import sys
@@ -50,13 +53,14 @@ def main(argv=None):
                                               mesh=mesh)
         save_artifacts = str(driver.params.get("save", "0")) == "1"
 
-        for lecture in driver.iter_lectures():
-            with driver.timer.measure(lecture.title):
-                indices, times, keyframes = run_lecture(
-                    driver, lecture, binarizer,
-                    save_artifacts=save_artifacts)
-            print(f"{lecture.title}: {len(keyframes)} keyframes in "
-                  f"{driver.timer.totals[lecture.title]:.2f}s")
+        with driver.trace():
+            for lecture in driver.iter_lectures():
+                with driver.timer.measure(lecture.title):
+                    indices, times, keyframes = run_lecture(
+                        driver, lecture, binarizer,
+                        save_artifacts=save_artifacts)
+                print(f"{lecture.title}: {len(keyframes)} keyframes in "
+                      f"{driver.timer.totals[lecture.title]:.2f}s")
     finally:
         if binarizer is not None and hasattr(binarizer, "close"):
             binarizer.close()

@@ -22,6 +22,7 @@ sees foreground ink as nonzero.
 
 from __future__ import annotations
 
+import itertools
 import os
 import queue
 from typing import List, Optional, Tuple, Union
@@ -32,6 +33,7 @@ import torch
 from ..core.backend_probe import BackendUnavailable, call_with_deadline
 from ..core.config import Config
 from ..core.device import resolve_device
+from ..core.timing import span
 from ..models.convert import load_checkpoint
 from ..models.fcn_lecturenet import (FCNConfig, FCNLectureNet, fold_model,
                                      init_weights, unpack_bits_host)
@@ -163,38 +165,37 @@ class _AsyncDrainer:
     (``torch.cuda.Event.synchronize`` releases the GIL).
 
     Yield order, values, and the in-flight bound (``depth`` batches beyond
-    the one being drained) are identical to the synchronous path."""
+    the one being drained) are identical to the synchronous path. The
+    consumer's blocked time on the results is the span ``stage01.wait``,
+    tagged with the batch number (results come out in batch order)."""
 
     _DONE = object()
 
-    def __init__(self, drain_fn, depth: int, stats: dict):
+    def __init__(self, drain_fn, depth: int):
         import threading
 
         self._drain_fn = drain_fn
         self._depth = depth
-        self._stats = stats
         self._in = queue.Queue()
         self._out = queue.Queue(maxsize=depth + 2)
         self._stop = False
         self._inflight = 0
+        self._taken = 0
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="lm-stream-drain")
         self._thread.start()
 
     def _run(self):
-        from time import perf_counter as pc
         while True:
             entry = self._in.get()
             if entry is self._DONE or self._stop:
                 self._put(self._DONE)
                 return
-            t0 = pc()
             try:
                 out = self._drain_fn(entry)
             except BaseException as exc:  # noqa: BLE001 — relayed to consumer
                 self._put(("err", exc))
                 return
-            self._stats["drain_s"] += pc() - t0
             if not self._put(("ok", out)):
                 return
 
@@ -210,11 +211,13 @@ class _AsyncDrainer:
         return False
 
     def _take(self):
-        item = self._out.get()
+        with span("stage01.wait", tag=self._taken):
+            item = self._out.get()
+        self._taken += 1
         if item is self._DONE:
             raise RuntimeError("stream drain thread exited early")
-        tag, val = item
-        if tag == "err":
+        kind, val = item
+        if kind == "err":
             self._stop = True
             raise val
         self._inflight -= 1
@@ -232,14 +235,8 @@ class _AsyncDrainer:
     def finish(self):
         """Yield the remaining in-flight results in order."""
         self._in.put(self._DONE)
-        while True:
-            item = self._out.get()
-            if item is self._DONE:
-                return
-            tag, val = item
-            if tag == "err":
-                raise val
-            yield val
+        while self._inflight:
+            yield self._take()
 
     def close(self):
         """Abandonment path (consumer broke out of the generator): unblock
@@ -479,49 +476,47 @@ class Binarizer:
         Consumers doing host work between batches (CC tracking, PNG encode)
         overlap it with device compute — express wall-clock approaches
         max(host, device) instead of their sum."""
-        import time
-
         first = None
         model_size = None
         full_size = None
         use_packed = self._packed_fn is not None
-        pending = []  # (copy handle, batch) — drained behind for overlap
+        pending = []  # (copy handle, batch, number) — drained behind
         # per-phase wall accounting for the last stream (observability:
         # where stage-01 time goes — host decode/batch, upload+dispatch,
-        # result copy wait+unpack). Read via self.stream_stats after a run.
+        # result copy wait+unpack), the seconds of the stage01.* spans.
+        # Read via self.stream_stats after a run.
         stats = self.stream_stats = {"source_s": 0.0, "dispatch_s": 0.0,
                                      "drain_s": 0.0, "downscale_s": 0.0}
-        pc = time.perf_counter
         # every batch in flight, plus the one being started, holds a buffer
         copies = _HostCopies(self.device, self.pipeline_depth + 2)
 
         def drain(entry):
-            handle, batch = entry
-            host = copies.wait(handle)
-            # unpacking (or the copy) leaves the pinned buffer free for reuse
-            host = (unpack_bits_host(host, model_size[0]) if use_packed
-                    else host.copy())
-            copies.release(handle)
-            frames = []
-            for offset in range(batch.valid):
-                img = host[offset]
-                if model_size != full_size:
-                    img = resize_nearest(img, full_size)
-                if invert:
-                    img = 255 - img
-                frames.append(img)
+            handle, batch, number = entry
+            with span("stage01.drain", stats, "drain_s", number):
+                host = copies.wait(handle)
+                # unpacking (or the copy) leaves the pinned buffer free
+                host = (unpack_bits_host(host, model_size[0]) if use_packed
+                        else host.copy())
+                copies.release(handle)
+                frames = []
+                for offset in range(batch.valid):
+                    img = host[offset]
+                    if model_size != full_size:
+                        img = resize_nearest(img, full_size)
+                    if invert:
+                        img = 255 - img
+                    frames.append(img)
             return batch.times, batch.indices, frames
 
-        drainer = (_AsyncDrainer(drain, self.pipeline_depth, stats)
+        drainer = (_AsyncDrainer(drain, self.pipeline_depth)
                    if self.async_drain else None)
         if drainer is not None:
             stats["drain_async"] = 1.0
         try:
             batches = self._batched(source, frames_limit)
-            while True:
-                t0 = pc()
-                batch = next(batches, None)
-                stats["source_s"] += pc() - t0
+            for number in itertools.count():
+                with span("stage01.source", stats, "source_s", number):
+                    batch = next(batches, None)
                 if batch is None:
                     break
                 if first is None:
@@ -549,42 +544,34 @@ class Binarizer:
 
                 frames = batch.frames
                 if model_size != full_size and not device_halvings:
-                    t0 = pc()
-                    frames = _downscale_batch(frames, model_size,
-                                              self.downscale_filter)
-                    stats["downscale_s"] += pc() - t0
+                    with span("stage01.downscale", stats, "downscale_s",
+                              number):
+                        frames = _downscale_batch(frames, model_size,
+                                                  self.downscale_filter)
 
                 if use_packed and self.upload_format == "yuv420":
                     from ..models.fcn_lecturenet import rgb_to_yuv420_host
 
-                    t0 = pc()
-                    frames = rgb_to_yuv420_host(frames)
-                    stats["source_s"] += pc() - t0
+                    with span("stage01.source", stats, "source_s", number):
+                        frames = rgb_to_yuv420_host(frames)
 
-                t0 = pc()
-                result = self._run(self._packed_fns if use_packed else
-                                   self._binary_fns, frames)
-                handle = copies.start(result)
-                stats["dispatch_s"] += pc() - t0
+                with span("stage01.dispatch", stats, "dispatch_s", number):
+                    result = self._run(self._packed_fns if use_packed else
+                                       self._binary_fns, frames)
+                    handle = copies.start(result)
                 if drainer is not None:
-                    for out in drainer.push((handle, batch)):
+                    for out in drainer.push((handle, batch, number)):
                         yield out
                 else:
-                    pending.append((handle, batch))
+                    pending.append((handle, batch, number))
                     if len(pending) > self.pipeline_depth:
-                        t0 = pc()
-                        out = drain(pending.pop(0))
-                        stats["drain_s"] += pc() - t0
-                        yield out
+                        yield drain(pending.pop(0))
 
             if drainer is not None:
                 yield from drainer.finish()
             else:
                 for entry in pending:
-                    t0 = pc()
-                    out = drain(entry)
-                    stats["drain_s"] += pc() - t0
-                    yield out
+                    yield drain(entry)
         finally:
             if drainer is not None:
                 drainer.close()
@@ -629,8 +616,6 @@ class Binarizer:
                   + ("" if self.mesh is None or self.mesh.shape["model"] == 1
                      else f", {self.mesh.shape['model']}-way model axis"))
             self.batch_size = batch_size
-
-            import itertools
 
             chained = itertools.chain([first], frame_iter)
             buffer = []

@@ -24,6 +24,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from ..core.timing import span
 from ..data.cc import CC, extract_ccs, render_ccs
 
 
@@ -73,7 +74,10 @@ class CCTracker:
             from ..ops.classical import background_subtraction_binarize
 
             frame = background_subtraction_binarize(frame.astype(np.uint8))
-        self.add_frame_ccs(extract_ccs(frame))
+        with span("stage02.extract", cpu=False):
+            ccs = extract_ccs(frame)
+        with span("stage02.match", cpu=False):
+            self.add_frame_ccs(ccs)
 
     def add_frame_ccs(self, current: List[CC]) -> None:
         frame_entries: List[Tuple[int, CC]] = []

@@ -19,7 +19,7 @@ from typing import Any, Callable, Iterator, List, Optional, Sequence, Union
 from ..core.artifacts import ArtifactStore
 from ..core.config import Config, parse_cli_overrides
 from ..core.metadata import LectureInfo, MetaDataDB
-from ..core.timing import StageTimer
+from ..core.timing import StageTimer, torch_trace
 
 Prefixes = Union[None, str, List[str]]
 
@@ -257,16 +257,20 @@ class PipelineDriver:
         else:
             self.store.save(results, self.output_prefixes, lecture.id)
 
+    def trace(self):
+        """The capture ``-trace <dir>`` asks for: a torch profiler trace,
+        with the port's spans, into ``<dir>/trace.json`` (core/timing.py
+        torch_trace); without the option, a no-op."""
+        trace_dir = self.params.get("trace")
+        return torch_trace(trace_dir if isinstance(trace_dir, str) else None)
+
     def run(self, process_fn: Callable[["PipelineDriver", LectureInfo, Any], Any]
             ) -> None:
         """Run a stage function over all selected lectures, relaying
         artifacts (the start_input_processing equivalent). Pass
         ``-trace <dir>`` on the CLI to capture a torch profiler trace of
         the stage."""
-        from ..core.timing import torch_trace
-
-        trace_dir = self.params.get("trace")
-        with torch_trace(trace_dir if isinstance(trace_dir, str) else None):
+        with self.trace():
             for lecture in self.iter_lectures():
                 inputs = self.load_inputs(lecture)
                 with self.timer.measure(lecture.title):

@@ -25,6 +25,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..core.config import Config
+from ..core.timing import span
 from ..utils.image import resize_linear, resize_nearest
 from ..utils import png
 from ..utils.png import (ImageFormatError, decode_png_color, decode_png_gray,
@@ -214,50 +215,58 @@ class LectureNetDataset:
     # ------------------------------------------------------------ sampling
 
     def sample(self, index: int) -> Dict[str, np.ndarray]:
+        """One augmented sample; its spans ``data.decode``, ``data.augment``
+        and ``data.masks`` (core/timing.py)."""
         rng = self.rng
-        img, gt = self._get_pair(index)
+        with span("data.decode", cpu=False):
+            img, gt = self._get_pair(index)
 
-        if self.flip_chance is not None:
-            img, gt = augment.random_flips(rng, img, gt, self.flip_chance)
+        with span("data.augment", cpu=False):
+            if self.flip_chance is not None:
+                img, gt = augment.random_flips(rng, img, gt, self.flip_chance)
 
-        if self.crop_size is not None:
-            img, gt = augment.random_crop_min_fg(rng, img, gt, self.crop_size,
-                                                 self.crop_min_fg_prc)
+            if self.crop_size is not None:
+                img, gt = augment.random_crop_min_fg(rng, img, gt,
+                                                     self.crop_size,
+                                                     self.crop_min_fg_prc)
 
-        if (self.color_invert_chance is not None and
-                rng.random() < self.color_invert_chance):
-            img = augment.color_invert(img)
-        if (self.color_change_chance is not None and
-                rng.random() < self.color_change_chance):
-            img = augment.hue_shift(rng, img)
-        if (self.gaussian_noise_chance is not None and
-                rng.random() < self.gaussian_noise_chance):
-            img = augment.gaussian_noise(rng, img, self.gaussian_noise_level)
-        if (self.luminosity_change_chance is not None and
-                rng.random() < self.luminosity_change_chance):
-            img = augment.luminosity_jitter(rng, img)
+            if (self.color_invert_chance is not None and
+                    rng.random() < self.color_invert_chance):
+                img = augment.color_invert(img)
+            if (self.color_change_chance is not None and
+                    rng.random() < self.color_change_chance):
+                img = augment.hue_shift(rng, img)
+            if (self.gaussian_noise_chance is not None and
+                    rng.random() < self.gaussian_noise_chance):
+                img = augment.gaussian_noise(rng, img,
+                                             self.gaussian_noise_level)
+            if (self.luminosity_change_chance is not None and
+                    rng.random() < self.luminosity_change_chance):
+                img = augment.luminosity_jitter(rng, img)
 
-        img = np.ascontiguousarray(img)
-        sample = {"image": img.astype(np.float32) / 127.5 - 1.0}
+            img = np.ascontiguousarray(img)
+            sample = {"image": img.astype(np.float32) / 127.5 - 1.0}
 
-        if self.text_mask_expansion is not None and gt is not None:
-            mask = augment.text_region_mask(np.ascontiguousarray(gt),
-                                            self.text_mask_expansion)
-            sample["text_mask"] = (mask.astype(np.float32) / 255.0)[..., None]
+        with span("data.masks", cpu=False):
+            if self.text_mask_expansion is not None and gt is not None:
+                mask = augment.text_region_mask(np.ascontiguousarray(gt),
+                                                self.text_mask_expansion)
+                sample["text_mask"] = (mask.astype(np.float32)
+                                       / 255.0)[..., None]
 
-        if self.reconstruct_median:
-            median = augment.median_target(img, self.reconstruct_median_k)
-            sample["median"] = median.astype(np.float32) / 127.5 - 1.0
+            if self.reconstruct_median:
+                median = augment.median_target(img, self.reconstruct_median_k)
+                sample["median"] = median.astype(np.float32) / 127.5 - 1.0
 
-        if self.reconstruction_mode:
-            sample["target"] = sample["image"]
-        elif gt is not None:
-            sample["target"] = (gt.astype(np.float32) / 255.0)[..., None]
+            if self.reconstruction_mode:
+                sample["target"] = sample["image"]
+            elif gt is not None:
+                sample["target"] = (gt.astype(np.float32) / 255.0)[..., None]
 
-        if self.weight_expansion is not None and gt is not None:
-            sample["weights"] = augment.weight_map(
-                np.ascontiguousarray(gt), self.weight_expansion,
-                self.weight_fg_extra)[..., None]
+            if self.weight_expansion is not None and gt is not None:
+                sample["weights"] = augment.weight_map(
+                    np.ascontiguousarray(gt), self.weight_expansion,
+                    self.weight_fg_extra)[..., None]
 
         return sample
 
@@ -266,6 +275,9 @@ class LectureNetDataset:
         if shuffle:
             self.rng.shuffle(order)
         for start in range(0, len(order) - batch_size + 1, batch_size):
-            samples = [self.sample(int(i)) for i in order[start:start + batch_size]]
-            yield {key: np.stack([s[key] for s in samples])
-                   for key in samples[0]}
+            with span("data.batch"):
+                samples = [self.sample(int(i))
+                           for i in order[start:start + batch_size]]
+                batch = {key: np.stack([s[key] for s in samples])
+                         for key in samples[0]}
+            yield batch

@@ -18,6 +18,9 @@ Design constraints:
   * Exceptions in the producer re-raise at the consumer's next pull.
   * ``transform`` (the Trainer's upload to the card) runs in the
     producer, so the host-to-device copy overlaps the step too.
+
+The consumer's blocked time in ``__next__`` is the span ``train.wait``
+(core/timing.py), one a pull: each item's and the one that finds the end.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ from __future__ import annotations
 import queue
 import threading
 from typing import Callable, Iterable, Iterator, Optional
+
+from ..core.timing import span
 
 
 class PrefetchIterator:
@@ -84,7 +89,8 @@ class PrefetchIterator:
     def __next__(self):
         if self._finished:
             raise StopIteration
-        item = self._queue.get()
+        with span("train.wait"):
+            item = self._queue.get()
         if item is self._DONE:
             self._finished = True
             if self._error is not None:

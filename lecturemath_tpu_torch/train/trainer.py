@@ -63,6 +63,7 @@ import torch.nn as nn
 
 from ..core.config import Config
 from ..core.device import resolve_device
+from ..core.timing import span
 from ..models.convert import load_checkpoint, save_checkpoint
 from ..models.fcn_lecturenet import (FCNConfig, FCNLectureNet,
                                      fold_batch_norms, init_weights)
@@ -209,15 +210,16 @@ class Trainer:
         """NHWC numpy batch -> NCHW tensors on the device, channels_last
         (pinned and copied asynchronously to a card). Under a mesh the
         batch is the global one, and this process keeps its rows."""
-        if self.mesh is not None:
-            batch = process_rows(self.mesh, batch)
-        out = {}
-        for key, value in batch.items():
-            tensor = torch.from_numpy(np.ascontiguousarray(value))
-            if self.device.type == "cuda":
-                tensor = tensor.pin_memory().to(self.device,
-                                                non_blocking=True)
-            out[key] = tensor.permute(0, 3, 1, 2)
+        with span("train.upload"):
+            if self.mesh is not None:
+                batch = process_rows(self.mesh, batch)
+            out = {}
+            for key, value in batch.items():
+                tensor = torch.from_numpy(np.ascontiguousarray(value))
+                if self.device.type == "cuda":
+                    tensor = tensor.pin_memory().to(self.device,
+                                                    non_blocking=True)
+                out[key] = tensor.permute(0, 3, 1, 2)
         return out
 
     def forward(self, image: torch.Tensor):
@@ -239,8 +241,12 @@ class Trainer:
 
     def step(self, batch) -> Dict[str, torch.Tensor]:
         """One SGD step on ``batch`` (numpy NHWC, or tensors from
-        ``to_device``). Returns the per-term losses and their total as
-        device tensors."""
+        ``to_device``), the span ``train.step``. Returns the per-term losses
+        and their total as device tensors."""
+        with span("train.step"):
+            return self._step(batch)
+
+    def _step(self, batch) -> Dict[str, torch.Tensor]:
         if isinstance(next(iter(batch.values())), np.ndarray):
             batch = self.to_device(batch)
         self._set_modes()
