@@ -35,7 +35,12 @@ The spans, by thread:
   ``stage01.drain``, tagged likewise.
 - ``lm-batch-prefetch`` (``train/dataset.py``, ``train/trainer.py``):
   ``data.batch``; ``data.decode``, ``data.augment``, ``data.masks`` a
-  sample (no CPU time); ``train.upload``.
+  sample (no CPU time), ``data.decode`` tagged with the form the pair was
+  preloaded in, ``"pixels"`` (kept decoded) or ``"png"`` (decoded again),
+  and untagged where the dataset reads its files; ``train.upload``. Its
+  counter is ``LectureNetDataset.data_stats``: ``pairs_pixels``,
+  ``pairs_png`` and ``bytes_kept`` as ``preload`` left them, ``from_pixels``
+  and ``from_png`` the samples served from each form.
 - the trainer's: ``train.wait`` (``PrefetchIterator.__next__``) and
   ``train.step`` (``Trainer.step``).
 """
@@ -47,7 +52,7 @@ import itertools
 import sys
 import threading
 import time
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 # the most spans the buffer holds between two takes; more are counted, not kept
 MAX_SPANS = 1 << 20
@@ -86,7 +91,7 @@ class SpanRecord(NamedTuple):
     end_ns: int
     cpu_ns: Optional[int]  # the thread's CPU time over it (None: not read)
     parent: Optional[int]
-    tag: Optional[int]
+    tag: Union[int, str, None]
 
 
 class _SpanBuffer:
@@ -114,7 +119,7 @@ class _SpanBuffer:
         return (seq, parent, time.thread_time_ns() if cpu else None,
                 time.time_ns())
 
-    def close(self, name: str, tag: Optional[int],
+    def close(self, name: str, tag: Union[int, str, None],
               opened: Tuple[int, Optional[int], Optional[int], int]) -> None:
         end = time.time_ns()
         seq, parent, cpu0, start = opened
@@ -154,12 +159,15 @@ class span:
     ``perf_counter`` seconds to ``stats[key]`` where ``stats`` is given, and
     records the block while a torch profiler traces the process. ``tag`` is
     an optional integer that links spans of one item across threads (the
-    stage-01 stream's batch number); ``cpu=False`` records no CPU time."""
+    stage-01 stream's batch number) or a string that names a case of the
+    span (``data.decode``'s form), and may be set inside the block;
+    ``cpu=False`` records no CPU time."""
 
     __slots__ = ("name", "stats", "key", "tag", "cpu", "_opened", "_t0")
 
     def __init__(self, name: str, stats: Optional[dict] = None,
-                 key: Optional[str] = None, tag: Optional[int] = None,
+                 key: Optional[str] = None,
+                 tag: Union[int, str, None] = None,
                  cpu: bool = True):
         self.name, self.stats, self.key, self.tag = name, stats, key, tag
         self.cpu = cpu

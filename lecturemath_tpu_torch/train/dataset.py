@@ -3,8 +3,17 @@ yielding numpy batches ready for device upload.
 
 Covers the reference LectureNet_DataSet behaviors
 (reference: FCN_lecturenet_dataset.py:16-409): border-crop to the inked
-region, auto-upscale of small images, PNG-in-RAM preloading with fg/bg pixel
+region, auto-upscale of small images, preloading into RAM with fg/bg pixel
 accounting, and the per-sample augmentation chain (train/augment.py).
+
+``preload`` keeps each pair as its decoded uint8 pixels, read-only, while
+their total stays within half of the host memory available when it starts
+(``preload_budget``); the pairs past that keep PNG copies, as the reference
+keeps them all, and are decoded again each time they are drawn. The PNG round
+trip is lossless and the generator's draws do not depend on the form, so
+both forms give the same samples; kept pixels spare each sample the decode
+of a whole frame. ``data_stats`` counts the pairs and bytes kept in each form
+and the samples served from each.
 
 Each sample dict has: image [H,W,3] float32 in [-1,1] NHWC, target (gt mask
 or normalized image in reconstruction mode), weights, text_mask, median.
@@ -31,6 +40,20 @@ from ..utils import png
 from ..utils.png import (ImageFormatError, decode_png_color, decode_png_gray,
                          encode_png)
 from . import augment
+
+
+def preload_budget() -> int:
+    """The most bytes ``LectureNetDataset.preload`` keeps as decoded pixels:
+    half of the host memory available now."""
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE") // 2
+
+
+def _kept(array: np.ndarray) -> np.ndarray:
+    """A read-only contiguous copy: a border-crop view would hold the whole
+    frame, and a write through it would change every later epoch."""
+    array = array.copy()
+    array.setflags(write=False)
+    return array
 
 
 def read_image(path: str) -> np.ndarray:
@@ -105,6 +128,11 @@ class LectureNetDataset:
         self._preloaded: Optional[List] = None
         self.total_foreground = 0
         self.total_background = 0
+        # pairs and bytes kept by preload in each form, samples served from
+        # each; the hit share is from_pixels / (from_pixels + from_png)
+        self.data_stats = dict.fromkeys(
+            ("pairs_pixels", "pairs_png", "bytes_kept", "from_pixels",
+             "from_png"), 0)
 
     @classmethod
     def from_config(cls, config: Config, image_list, ground_truth_list,
@@ -187,39 +215,57 @@ class LectureNetDataset:
         return img, gt
 
     def preload(self, verbose: bool = False) -> None:
-        """Keep PNG-compressed copies in RAM + count fg/bg pixels
-        (dataset.py:145-179); the round trip is lossless."""
+        """Keep every pair in RAM + count fg/bg pixels (dataset.py:145-179):
+        as read-only decoded pixels while their total stays within
+        ``preload_budget()``, and from the first pair that would pass it on
+        as PNG copies (the reference's form for them all), which the round
+        trip gives back unchanged."""
+        budget = preload_budget()
         self._preloaded = []
         self.total_foreground = 0
         self.total_background = 0
+        stats = self.data_stats = dict.fromkeys(self.data_stats, 0)
         for index in range(len(self)):
             img, gt = self.load_pair(index)
             if gt is not None:
                 fg = int((gt == 0).sum())
                 self.total_foreground += fg
                 self.total_background += gt.size - fg
-            img_png = encode_png(img[:, :, ::-1])
-            gt_png = encode_png(gt) if gt is not None else None
-            self._preloaded.append((img_png, gt_png))
+            size = img.nbytes + (gt.nbytes if gt is not None else 0)
+            if not stats["pairs_png"] and stats["bytes_kept"] + size <= budget:
+                pair = (_kept(img), _kept(gt) if gt is not None else None)
+                stats["pairs_pixels"] += 1
+            else:
+                pair = (encode_png(img[:, :, ::-1]),
+                        encode_png(gt) if gt is not None else None)
+                stats["pairs_png"] += 1
+                size = len(pair[0]) + (len(pair[1]) if gt is not None else 0)
+            stats["bytes_kept"] += size
+            self._preloaded.append(pair)
             if verbose:
                 print(f"preloaded {index + 1}/{len(self)}", end="\r")
 
     def _get_pair(self, index: int):
-        if self._preloaded is not None:
-            img_png, gt_png = self._preloaded[index]
-            img = decode_png_color(img_png)
-            gt = decode_png_gray(gt_png) if gt_png is not None else None
-            return img, gt
-        return self.load_pair(index)
+        """(form, img, gt): the preloaded pair as kept (form "pixels") or
+        decoded from its PNG copies ("png"), or read from its files (None)."""
+        if self._preloaded is None:
+            return (None, *self.load_pair(index))
+        img, gt = self._preloaded[index]
+        if isinstance(img, np.ndarray):
+            self.data_stats["from_pixels"] += 1
+            return "pixels", img, gt
+        self.data_stats["from_png"] += 1
+        return ("png", decode_png_color(img),
+                decode_png_gray(gt) if gt is not None else None)
 
     # ------------------------------------------------------------ sampling
 
     def sample(self, index: int) -> Dict[str, np.ndarray]:
-        """One augmented sample; its spans ``data.decode``, ``data.augment``
-        and ``data.masks`` (core/timing.py)."""
+        """One augmented sample; its spans ``data.decode`` (tagged with the
+        pair's form), ``data.augment`` and ``data.masks`` (core/timing.py)."""
         rng = self.rng
-        with span("data.decode", cpu=False):
-            img, gt = self._get_pair(index)
+        with span("data.decode", cpu=False) as decode:
+            decode.tag, img, gt = self._get_pair(index)
 
         with span("data.augment", cpu=False):
             if self.flip_chance is not None:

@@ -12,12 +12,15 @@ import sys
 import cv2
 import numpy as np
 import pytest
+from torch.profiler import ProfilerActivity, profile
 
 from lecturemath_tpu.train import augment as jaug
 from lecturemath_tpu.train.dataset import LectureNetDataset as JAXDataset
 from lecturemath_tpu.utils.synthetic import synthetic_rgb_lecture
 from lecturemath_tpu_torch import native
+from lecturemath_tpu_torch.core import timing
 from lecturemath_tpu_torch.train import augment as taug
+from lecturemath_tpu_torch.train import dataset as dataset_module
 from lecturemath_tpu_torch.train.dataset import (ImageFormatError,
                                                  LectureNetDataset)
 from lecturemath_tpu_torch.utils import image as timage
@@ -230,6 +233,151 @@ def test_dataset_batches_equal_jax_package(image_files, seed, preload):
             for key in b:
                 np.testing.assert_array_equal(a[key], b[key],
                                               err_msg=f"{epoch} {key}")
+
+
+def _epochs(dataset, epochs=2):
+    with no_opencv():
+        return [list(dataset.batches(2)) for _ in range(epochs)]
+
+
+def _assert_same_batches(ours, theirs):
+    for epoch, (a_epoch, b_epoch) in enumerate(zip(ours, theirs)):
+        assert len(a_epoch) == len(b_epoch) == 2
+        for a, b in zip(a_epoch, b_epoch):
+            assert sorted(a) == sorted(b)
+            for key in b:
+                np.testing.assert_array_equal(a[key], b[key],
+                                              err_msg=f"{epoch} {key}")
+
+
+def _preload_options(reconstruction):
+    """ALL_ON with border cropping (binarizer mode) or without the GT's
+    masks (reconstruction mode); the two small frames are upscaled."""
+    if reconstruction:
+        return dict(ALL_ON, weight_expansion=None, text_mask_expansion=None)
+    return dict(ALL_ON, crop_remove_empty_borders=True)
+
+
+def _preloaded(images, gts, reconstruction, seed, budget, monkeypatch):
+    """The port's dataset preloaded with ``preload_budget`` returning
+    ``budget`` (None: the host's own)."""
+    if budget is not None:
+        monkeypatch.setattr(dataset_module, "preload_budget", lambda: budget)
+    with no_opencv():
+        ours = LectureNetDataset(images, gts,
+                                 reconstruction_mode=reconstruction,
+                                 seed=seed, **_preload_options(reconstruction))
+        ours.preload()
+    monkeypatch.undo()
+    return ours
+
+
+def _pixel_bytes(dataset, count):
+    """The bytes of the first ``count`` pairs as decoded pixels."""
+    total = 0
+    for index in range(count):
+        img, gt = dataset.load_pair(index)
+        total += img.nbytes + (gt.nbytes if gt is not None else 0)
+    return total
+
+
+@pytest.mark.parametrize("reconstruction", [False, True])
+@pytest.mark.parametrize("seed", [0, 3])
+def test_preloaded_pixels_equal_png_form_and_jax_package(
+        image_files, monkeypatch, seed, reconstruction):
+    """Kept pixels, PNG copies and the JAX package's preloaded dataset give
+    the same batches over two epochs, and the same fg/bg counts."""
+    images, gts = image_files
+    gts = None if reconstruction else gts
+    theirs = JAXDataset(images, gts, reconstruction_mode=reconstruction,
+                        seed=seed, **_preload_options(reconstruction))
+    theirs.preload()
+    pixels = _preloaded(images, gts, reconstruction, seed, None, monkeypatch)
+    pngs = _preloaded(images, gts, reconstruction, seed, 0, monkeypatch)
+    assert pixels.data_stats["pairs_pixels"] == 4
+    assert pngs.data_stats["pairs_png"] == 4
+    for ours in (pixels, pngs):
+        assert (ours.total_foreground, ours.total_background) == (
+            theirs.total_foreground, theirs.total_background)
+    expected = [list(theirs.batches(2)) for _ in range(2)]
+    _assert_same_batches(_epochs(pixels), expected)
+    _assert_same_batches(_epochs(pngs), expected)
+
+
+def test_preloaded_pixels_are_read_only_copies(image_files):
+    """Each kept array owns its contiguous data (a border crop holds no
+    view of its whole frame) and refuses a write."""
+    images, gts = image_files
+    with no_opencv():
+        ours = LectureNetDataset(images, gts, seed=0,
+                                 **_preload_options(False))
+        ours.preload()
+    for index in range(len(ours)):
+        img, gt = ours.load_pair(index)
+        for kept, loaded in zip(ours._preloaded[index], (img, gt)):
+            assert kept.base is None and kept.flags.c_contiguous
+            assert not kept.flags.writeable
+            np.testing.assert_array_equal(kept, loaded)
+            with pytest.raises(ValueError, match="read-only"):
+                kept[0, 0] = 1
+        if index < 2:   # the large frames, cropped to their ink: views
+            assert img.base is not None and img.shape[:2] != (96, 128)
+
+
+@pytest.mark.parametrize("kept_pairs", [0, 2])
+@pytest.mark.parametrize("reconstruction", [False, True])
+def test_preload_keeps_pixels_within_its_budget(image_files, monkeypatch,
+                                                reconstruction, kept_pairs):
+    """A budget of nothing keeps every pair as PNG; one that fits the first
+    two pairs keeps those as pixels and the rest as PNG. The batches, the
+    fg/bg counts and the counters follow the split."""
+    images, gts = image_files
+    gts = None if reconstruction else gts
+    whole = _preloaded(images, gts, reconstruction, 3, None, monkeypatch)
+    budget = _pixel_bytes(whole, kept_pairs)
+    split = _preloaded(images, gts, reconstruction, 3, budget, monkeypatch)
+    forms = [isinstance(img, np.ndarray) for img, _ in split._preloaded]
+    assert forms == [True] * kept_pairs + [False] * (4 - kept_pairs)
+    stats = split.data_stats
+    assert (stats["pairs_pixels"], stats["pairs_png"]) == (kept_pairs,
+                                                           4 - kept_pairs)
+    png_bytes = sum(len(img) + (len(gt) if gt is not None else 0)
+                    for img, gt in split._preloaded[kept_pairs:])
+    assert stats["bytes_kept"] == budget + png_bytes
+    assert whole.data_stats["bytes_kept"] == _pixel_bytes(whole, 4)
+    assert (split.total_foreground, split.total_background) == (
+        whole.total_foreground, whole.total_background)
+    _assert_same_batches(_epochs(split), _epochs(whole))
+    # two epochs draw every pair twice
+    assert (stats["from_pixels"], stats["from_png"]) == (2 * kept_pairs,
+                                                         2 * (4 - kept_pairs))
+    assert whole.data_stats["from_pixels"] == 8
+    assert whole.data_stats["from_png"] == 0
+
+
+def test_decode_span_names_the_pairs_form(image_files, monkeypatch):
+    """While a profiler traces, each ``data.decode`` span carries the form
+    its pair was served from; a dataset that reads its files tags none."""
+    images, gts = image_files
+    split = _preloaded(images, gts, False, 0, 1, monkeypatch)
+    split_stats = dict(split.data_stats)
+    files = LectureNetDataset(images, gts, seed=0, **_preload_options(False))
+    timing.take_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        _epochs(split, 1)
+        _epochs(files, 1)
+    records, dropped = timing.take_spans()
+    tags = [r.tag for r in records if r.name == "data.decode"]
+    assert dropped == 0 and len(tags) == 8
+    assert sorted(tags[:4]) == ["png"] * 4 and tags[4:] == [None] * 4
+    assert split_stats["pairs_png"] == 4
+    assert files.data_stats == dict.fromkeys(files.data_stats, 0)
+
+
+def test_preload_budget_is_half_the_available_memory():
+    available = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+    budget = dataset_module.preload_budget()
+    assert 0 < budget <= available // 2 + (64 << 20)
 
 
 @pytest.mark.parametrize("reconstruction", [False, True])
