@@ -11,7 +11,10 @@ device: without LM_COORDINATOR this process starts D workers of itself on
 this host (parallel/launch.py), each on one card through
 CUDA_VISIBLE_DEVICES (or on the CPU with ``-device cpu``), and exits with
 the first non-zero code of theirs; under the LM_* contract (a process per
-card on each host) it joins that world. ``-mesh DxM`` also shards the
+card on each host) it joins that world. Each process that preloads keeps
+at most its share of half the host's available memory as pixels, split
+over the launcher's workers of this host (``LM_LOCAL_PROCESSES``), or under
+the contract over the world's processes. ``-mesh DxM`` also shards the
 model's channels over M devices of each data position, as the JAX
 package's trainer does (train/trainer.py): ``-mesh 1xM`` trains in this
 process over M cards (or M CPU shards with ``-device cpu``); with D > 1

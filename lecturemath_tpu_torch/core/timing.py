@@ -37,10 +37,13 @@ The spans, by thread:
   ``data.batch``; ``data.decode``, ``data.augment``, ``data.masks`` a
   sample (no CPU time), ``data.decode`` tagged with the form the pair was
   preloaded in, ``"pixels"`` (kept decoded) or ``"png"`` (decoded again),
-  and untagged where the dataset reads its files; ``train.upload``. Its
-  counter is ``LectureNetDataset.data_stats``: ``pairs_pixels``,
-  ``pairs_png`` and ``bytes_kept`` as ``preload`` left them, ``from_pixels``
-  and ``from_png`` the samples served from each form.
+  and untagged where the dataset reads its files; ``data.median`` inside
+  ``data.masks`` where the sample's median target is made (the
+  reconstruction phase), tagged with the route, ``"native"`` or
+  ``"numpy"`` (no CPU time); ``train.upload``. Its counter is
+  ``LectureNetDataset.data_stats``: ``pairs_pixels``, ``pairs_png`` and
+  ``bytes_kept`` as ``preload`` left them, ``from_pixels`` and
+  ``from_png`` the samples served from each form.
 - the trainer's: ``train.wait`` (``PrefetchIterator.__next__``) and
   ``train.step`` (``Trainer.step``).
 """

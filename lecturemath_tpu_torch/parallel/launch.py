@@ -11,11 +11,13 @@ becomes the launcher: on the CPU it starts D workers, each holding its
 data position's M CPU shards; on cards D x M workers, one card each, the
 M of a model group joined by its sub-group (``make_mesh``). Worker k gets
 ``LM_PROCESS_ID = k`` and, on the card, ``CUDA_VISIBLE_DEVICES`` naming
-the k-th card this process sees. A mesh of one data position (``-mesh
-1xM``) trains in this process, over M cards or M CPU shards. The launcher
-waits for the workers and returns the first non-zero exit code; when a
-worker fails it stops the others, which would otherwise wait for it in a
-collective.
+the k-th card this process sees; every worker gets
+``LM_LOCAL_PROCESSES``, their count, over which each one's dataset splits
+the host memory it may keep preloaded (``train/dataset.py
+preload_budget``). A mesh of one data position (``-mesh 1xM``) trains in
+this process, over M cards or M CPU shards. The launcher waits for the
+workers and returns the first non-zero exit code; when a worker fails it
+stops the others, which would otherwise wait for it in a collective.
 """
 
 from __future__ import annotations
@@ -83,7 +85,8 @@ def launch_local(module: str, args: Sequence[str], n: int,
     procs = []
     for rank in range(n):
         env = dict(os.environ, LM_COORDINATOR=f"127.0.0.1:{port}",
-                   LM_NUM_PROCESSES=str(n), LM_PROCESS_ID=str(rank))
+                   LM_NUM_PROCESSES=str(n), LM_PROCESS_ID=str(rank),
+                   LM_LOCAL_PROCESSES=str(n))
         env["PYTHONPATH"] = os.pathsep.join(
             [PACKAGE_ROOT] + [p for p in env.get("PYTHONPATH", "").split(
                 os.pathsep) if p])

@@ -7,13 +7,14 @@ region, auto-upscale of small images, preloading into RAM with fg/bg pixel
 accounting, and the per-sample augmentation chain (train/augment.py).
 
 ``preload`` keeps each pair as its decoded uint8 pixels, read-only, while
-their total stays within half of the host memory available when it starts
-(``preload_budget``); the pairs past that keep PNG copies, as the reference
-keeps them all, and are decoded again each time they are drawn. The PNG round
-trip is lossless and the generator's draws do not depend on the form, so
-both forms give the same samples; kept pixels spare each sample the decode
-of a whole frame. ``data_stats`` counts the pairs and bytes kept in each form
-and the samples served from each.
+their total stays within half of the host memory available when it starts,
+split over the host's training processes (``preload_budget``); the pairs
+past that keep PNG copies, as the reference keeps them all, and are decoded
+again each time they are drawn. The PNG round trip is lossless and the
+generator's draws do not depend on the form, so both forms give the same
+samples; kept pixels spare each sample the decode of a whole frame.
+``data_stats`` counts the pairs and bytes kept in each form and the samples
+served from each.
 
 Each sample dict has: image [H,W,3] float32 in [-1,1] NHWC, target (gt mask
 or normalized image in reconstruction mode), weights, text_mask, median.
@@ -35,17 +36,31 @@ import numpy as np
 
 from ..core.config import Config
 from ..core.timing import span
-from ..utils.image import resize_linear, resize_nearest
+from ..utils.image import median_route, resize_linear, resize_nearest
 from ..utils import png
 from ..utils.png import (ImageFormatError, decode_png_color, decode_png_gray,
                          encode_png)
 from . import augment
 
 
+def available_memory() -> int:
+    """The bytes of host memory available now."""
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
 def preload_budget() -> int:
     """The most bytes ``LectureNetDataset.preload`` keeps as decoded pixels:
-    half of the host memory available now."""
-    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE") // 2
+    half of the host memory available now, split evenly over the host's
+    training processes, which start together and so all read about the same
+    free memory. Their count is ``LM_LOCAL_PROCESSES``, which
+    ``parallel/launch.py`` sets for the workers it starts. A process that
+    joined a world of ``LM_NUM_PROCESSES`` under the LM_* contract without
+    it splits over the whole world, which no host's share exceeds; a
+    process alone keeps all of it."""
+    processes = os.environ.get("LM_LOCAL_PROCESSES",
+                               os.environ.get("LM_NUM_PROCESSES", "1"))
+    processes = max(1, int(processes))
+    return available_memory() // 2 // processes
 
 
 def _kept(array: np.ndarray) -> np.ndarray:
@@ -262,7 +277,10 @@ class LectureNetDataset:
 
     def sample(self, index: int) -> Dict[str, np.ndarray]:
         """One augmented sample; its spans ``data.decode`` (tagged with the
-        pair's form), ``data.augment`` and ``data.masks`` (core/timing.py)."""
+        pair's form), ``data.augment`` and ``data.masks``, and inside the
+        last ``data.median`` where the median target is made (tagged with
+        the route that made it, ``utils/image.py median_route``;
+        core/timing.py)."""
         rng = self.rng
         with span("data.decode", cpu=False) as decode:
             decode.tag, img, gt = self._get_pair(index)
@@ -301,7 +319,9 @@ class LectureNetDataset:
                                        / 255.0)[..., None]
 
             if self.reconstruct_median:
-                median = augment.median_target(img, self.reconstruct_median_k)
+                with span("data.median", cpu=False, tag=median_route()):
+                    median = augment.median_target(img,
+                                                   self.reconstruct_median_k)
                 sample["median"] = median.astype(np.float32) / 127.5 - 1.0
 
             if self.reconstruction_mode:

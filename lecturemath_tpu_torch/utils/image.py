@@ -580,9 +580,15 @@ def median_blur(img: np.ndarray, ksize: int) -> np.ndarray:
     if ksize % 2 == 0 or not 1 < ksize < 256:
         raise ValueError(f"median ksize must be odd and in 3..255, got "
                          f"{ksize}")
-    if native.available():
+    if median_route() == "native":
         return native.median_u8(img, ksize)
     return _median_numpy(img, ksize)
+
+
+def median_route() -> str:
+    """The route ``median_blur`` takes: ``"native"`` where the native library
+    builds, else ``"numpy"``."""
+    return "native" if native.available() else "numpy"
 
 
 def _median_numpy(img: np.ndarray, ksize: int) -> np.ndarray:

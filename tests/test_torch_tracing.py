@@ -347,6 +347,51 @@ def test_training_epoch_spans(tmp_path):
             assert r.cpu_ns >= 0
 
 
+@pytest.mark.parametrize("route", ["native", "numpy"])
+def test_median_span_a_sample_only_where_the_median_is_made(
+        tmp_path, monkeypatch, route):
+    """``data.median``: once a sample, inside its ``data.masks``, tagged with
+    the route that made the median, and only while a profiler runs; a
+    binarizer-phase dataset (no median target) records none."""
+    from lecturemath_tpu_torch import native
+    from lecturemath_tpu_torch.utils.image import median_route
+
+    if route == "numpy":
+        monkeypatch.setattr(native, "available", lambda: False)
+    assert median_route() == route
+    rgb, binary, _, _ = synthetic_rgb_lecture(seed=0, n_frames=4, height=48,
+                                              width=64)
+    images, truths = [], []
+    for k in range(4):
+        images.append(str(tmp_path / f"img_{k}.png"))
+        truths.append(str(tmp_path / f"gt_{k}.png"))
+        with open(images[-1], "wb") as f:
+            f.write(encode_png(np.ascontiguousarray(rgb[k][:, :, ::-1])))
+        with open(truths[-1], "wb") as f:
+            f.write(encode_png(np.ascontiguousarray(255 - binary[k])))
+    reconstruction = LectureNetDataset(images, None, reconstruction_mode=True,
+                                       crop_size=(32, 32), flip_chance=0.5,
+                                       reconstruct_median=True,
+                                       reconstruct_median_k=5, seed=0)
+    list(reconstruction.batches(2))
+    assert taken() == []
+    with traced():
+        list(reconstruction.batches(2))
+    records = taken()
+    seq = {r.seq: r for r in records}
+    medians = [r for r in records if r.name == "data.median"]
+    assert len(medians) == counts(records)["data.masks"] == 4
+    for r in medians:
+        assert seq[r.parent].name == "data.masks"
+        assert r.tag == route and r.cpu_ns is None
+    binarizer = LectureNetDataset(images, truths, crop_size=(32, 32),
+                                  text_mask_expansion=3, seed=0)
+    with traced():
+        list(binarizer.batches(2))
+    n = counts(taken())
+    assert n["data.masks"] == 4 and n["data.median"] == 0
+
+
 def test_run_pipeline_trace_holds_the_spans(stream_workspace, tmp_path):
     """``-trace <dir>`` on the express CLI: trace.json holds the port's
     spans as complete events on the trace's clock, the drain thread's

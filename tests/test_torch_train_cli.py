@@ -6,6 +6,8 @@ JAX package; a resume file continues the epoch count; ``-mesh 1x2`` in
 process and ``-mesh 2x2`` in two launched workers write the meshless
 checkpoints; a missing warm start and a missing card raise."""
 
+import os
+
 import cv2
 import numpy as np
 import pytest
@@ -210,6 +212,75 @@ def test_a_mesh_of_several_devices_raises(workspace):
                 np.testing.assert_allclose(
                     meshed[key].numpy(), value.numpy(), rtol=1e-5, atol=1e-6,
                     err_msg=f"{mesh} {name} {key}")
+
+
+def test_preload_budget_is_split_over_the_launched_workers(workspace,
+                                                          monkeypatch):
+    """With the available memory read as eight images' bytes, one process
+    may keep half of it, four images, and keeps all three training images
+    as pixels; ``-mesh 2 -device cpu`` starts two workers
+    (``parallel/launch.py``), which may each keep a quarter of it, two
+    images, and keep two as pixels and the third as PNG, so together they
+    ask the host for no more than one process would."""
+    import json
+
+    from lecturemath_tpu_torch.parallel import launch
+    from lecturemath_tpu_torch.train import dataset as dataset_module
+
+    conf = workspace / "train.conf"
+    conf.write_text(conf.read_text()
+                    + "\nFCN_BINARIZER_PRETRAIN_PRELOAD_IMAGES = 1\n")
+    image = 64 * 80 * 3
+    monkeypatch.setattr(dataset_module, "available_memory",
+                        lambda: 8 * image)
+    kept = []
+    real_preload = dataset_module.LectureNetDataset.preload
+
+    def preload(self, verbose=False):
+        real_preload(self, verbose)
+        kept.append(dict(self.data_stats,
+                         budget=dataset_module.preload_budget()))
+
+    monkeypatch.setattr(dataset_module.LectureNetDataset, "preload", preload)
+    monkeypatch.delenv("LM_LOCAL_PROCESSES", raising=False)
+    monkeypatch.delenv("LM_NUM_PROCESSES", raising=False)
+    train_reconstruction.main(["prog", str(conf), "-device", "cpu"])
+    assert kept == [dict(kept[0], budget=4 * image, pairs_pixels=3,
+                         pairs_png=0, bytes_kept=3 * image)]
+
+    out = workspace / "budgets"
+    out.mkdir()
+    monkeypatch.setenv("LM_STUB_AVAILABLE", str(8 * image))
+    monkeypatch.setenv("LM_OUT_DIR", str(out))
+    monkeypatch.setenv("PYTHONPATH", os.path.dirname(__file__))
+    real_launch = launch.launch_local
+    monkeypatch.setattr(launch, "launch_local",
+                        lambda module, args, n, device: real_launch(
+                            "mp_budget_worker", args, n, device))
+    train_reconstruction.main(["prog", str(conf), "-device", "cpu",
+                               "-mesh", "2"])
+    for rank in range(2):
+        stats = json.loads((out / f"{rank}.json").read_text())
+        assert stats["budget"] == 2 * image
+        assert (stats["pairs_pixels"], stats["pairs_png"]) == (2, 1), stats
+
+
+@pytest.mark.parametrize("env, share", [
+    ({}, 1), ({"LM_LOCAL_PROCESSES": "2"}, 2), ({"LM_NUM_PROCESSES": "4"}, 4),
+    ({"LM_LOCAL_PROCESSES": "2", "LM_NUM_PROCESSES": "8"}, 2)],
+    ids=["alone", "launched", "world", "launched-in-world"])
+def test_preload_budget_splits_over_the_hosts_processes(monkeypatch, env,
+                                                        share):
+    """Half the available memory over the launcher's workers of this host,
+    else over a joined world's processes, else kept whole."""
+    from lecturemath_tpu_torch.train import dataset as dataset_module
+
+    monkeypatch.setattr(dataset_module, "available_memory", lambda: 8000)
+    for name in ("LM_LOCAL_PROCESSES", "LM_NUM_PROCESSES"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    assert dataset_module.preload_budget() == 4000 // share
 
 
 def test_a_one_device_mesh_trains_in_process(workspace):
