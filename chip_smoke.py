@@ -37,7 +37,12 @@ then, in phases:
      at heights 1 and 33; each batch also one byte into its storage (no
      aligned segment); the kernel's time a call for each batch (its three
      launches replayed in a CUDA graph) beside its bytes bound, the plain
-     time, and the device time a launch by pass under torch.profiler;
+     time, and the device time a launch by pass under torch.profiler; then
+     kernel K4 (median) at the reconstruction phase's batch [8, 256, 256, 3]
+     and k = 35 against native.median_u8, byte for byte, on random bytes
+     and on board crops: its device time beside its bytes bound, the plain
+     version's time on the host, and the host's wall of the training data's
+     route (pinned upload, K4 and the copy back on a side stream);
   6. the staged path at the same widths with CC_ANALYSIS_DEVICE_LABELING = 1:
      stage01_binarize through the driver (frames from memory), then the
      cc_analysis, cc_grouping, vid_segmentation and generate_summary CLIs on
@@ -1075,6 +1080,58 @@ def phase_k3(conf):
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bytes_ms, "bound_by": "bytes", "library_ms": None,
             "ms_by_input": ms_by_input}
+
+
+def phase_k4():
+    """K4 against native.median_u8 at the reconstruction phase's batch and
+    window; returns its kernel record."""
+    import numpy as np
+    import torch
+
+    from lecturemath_tpu_torch.ops.median import (median_u8_batch,
+                                                  median_u8_pinned,
+                                                  median_u8_plain)
+    from lecturemath_tpu_torch.utils.synthetic import synthetic_rgb_lecture
+
+    shape, k = (8, 256, 256, 3), 35
+    boards, _, _, _ = synthetic_rgb_lecture(seed=22, n_frames=8, height=256,
+                                            width=256)
+    inputs = {"random": np.random.default_rng(22).integers(0, 256, shape,
+                                                           np.uint8),
+              "boards": np.ascontiguousarray(boards)}
+    ms_by_input = {}
+    for name, host in inputs.items():
+        dev = torch.from_numpy(host).cuda()
+        got = median_u8_batch(dev, k).cpu()
+        t0 = time.perf_counter()
+        plain = median_u8_plain(torch.from_numpy(host), k)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        differ = int((got != plain).sum())
+        ms_by_input[name] = cuda_ms(lambda: median_u8_batch(dev, k), 50, 3)
+        crops = list(host)
+        median_u8_pinned(crops, k)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            median_u8_pinned(crops, k)
+        route_ms = (time.perf_counter() - t0) * 1e3 / 20
+        log(f"K4 {name} {list(shape)} k={k}: {differ} bytes differ from "
+            f"native.median_u8; kernel {ms_by_input[name] * 1e3:.1f} us a "
+            f"launch, plain (native.median_u8 on the host, a crop at a time) "
+            f"{plain_ms:.1f} ms, the training data's route (pinned upload, "
+            f"K4, copy back, side stream) {route_ms:.3f} ms of host wall")
+        if differ:
+            raise AssertionError(f"K4 disagrees on {name}")
+    ms = ms_by_input["boards"]
+    n_bytes = 2 * int(np.prod(shape))
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    log(f"K4 bound {bytes_ms * 1e3:.2f} us (bytes {n_bytes}) = "
+        f"{bytes_ms / ms:.5f} of the kernel's time on boards; no PyTorch "
+        f"call computes a median filter")
+    return {"name": "median", "route": "cuda",
+            "source": "lecturemath_tpu_torch/csrc/median.cu",
+            "replaces": None, "max_abs_err": 0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bytes_ms, "bound_by": "bytes",
+            "library_ms": None, "ms_by_input": ms_by_input}
 
 
 def same_tracker(ours, theirs):
@@ -5859,12 +5916,15 @@ def phase_model_axis_training(counters, card):
         counter.launches = 0
     numbers = {"parity_fp32": axis_train_parity(conf, net_config)}
     trained, numbers["bf16"] = axis_train_bf16(conf, net_config, card)
+    # the data path's median targets go through K4; no model kernel may
     training_launches = counted(counters)
-    if any(training_launches.values()):
+    if any(count for name, count in training_launches.items()
+           if name != "median"):
         raise AssertionError(f"model-axis training launched kernels "
                              f"{training_launches}: K2 under grad")
-    log("model-axis training (a), (b): no kernel launched (the heads run "
-        "F.conv2d under grad)")
+    log(f"model-axis training (a), (b): no model kernel launched (the heads "
+        f"run F.conv2d under grad); K4 {training_launches['median']} for "
+        f"the median targets")
     launches, numbers["trained_check"] = axis_trained_check(
         trained, net_config, counters, card)
     del trained
@@ -5902,6 +5962,7 @@ def main():
     from lecturemath_tpu_torch.ops import cuda_build
     from lecturemath_tpu_torch.ops.cc_label import label_components_batch
     from lecturemath_tpu_torch.ops.conv7 import conv_same_nhwc
+    from lecturemath_tpu_torch.ops.median import median_u8_batch
     from lecturemath_tpu_torch.ops.postprocess import threshold_pack
     from lecturemath_tpu_torch.pipeline.binarize import default_batch_size
 
@@ -5936,7 +5997,8 @@ def main():
     records = {}
     counters = {"threshold_pack": threshold_pack,
                 "conv_same_nhwc": conv_same_nhwc,
-                "cc_label": label_components_batch}
+                "cc_label": label_components_batch,
+                "median": median_u8_batch}
     walls = {"1 environment and build": time.perf_counter() - t_start}
     log(f"phase 1 environment and build: "
         f"{walls['1 environment and build']:.3f} s")
@@ -5990,6 +6052,9 @@ def main():
         record = run("5 K3", lambda: phase_k3(conf))
         if record is not None:
             records["K3"] = record
+        record = run("5 K4", phase_k4)
+        if record is not None:
+            records["K4"] = record
         staged_launches = run(
             "6 staged path",
             lambda: phase_staged(counters, summary.get("indices")), {})
@@ -6031,7 +6096,7 @@ def main():
     # launches each graph counted at capture, and beside them the launches
     # the profiler saw in one replay of each bucket's graph
     for key, name in (("K1", "threshold_pack"), ("K2", "conv_same_nhwc"),
-                      ("K3", "cc_label")):
+                      ("K3", "cc_label"), ("K4", "median")):
         if key in records:
             records[key]["launches"] = staged_launches.get(name, 0)
             records[key]["launches_by_path"] = {

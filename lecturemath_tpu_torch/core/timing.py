@@ -37,13 +37,16 @@ The spans, by thread:
   ``data.batch``; ``data.decode``, ``data.augment``, ``data.masks`` a
   sample (no CPU time), ``data.decode`` tagged with the form the pair was
   preloaded in, ``"pixels"`` (kept decoded) or ``"png"`` (decoded again),
-  and untagged where the dataset reads its files; ``data.median`` inside
-  ``data.masks`` where the sample's median target is made (the
-  reconstruction phase), tagged with the route, ``"native"`` or
-  ``"numpy"`` (no CPU time); ``train.upload``. Its counter is
+  and untagged where the dataset reads its files; ``data.median`` once a
+  batch inside ``data.batch``, after its samples, where the batch's median
+  targets are made (the reconstruction phase; a sample drawn on its own
+  makes its median in one of its own), tagged with the route: ``"cuda"``
+  (kernel K4, one launch a batch), ``"native"`` or ``"numpy"`` (a crop at
+  a time on the host) (no CPU time); ``train.upload``. Its counter is
   ``LectureNetDataset.data_stats``: ``pairs_pixels``, ``pairs_png`` and
   ``bytes_kept`` as ``preload`` left them, ``from_pixels`` and
-  ``from_png`` the samples served from each form.
+  ``from_png`` the samples served from each form, ``median_card`` and
+  ``median_host`` the samples whose median target each route made.
 - the trainer's: ``train.wait`` (``PrefetchIterator.__next__``) and
   ``train.step`` (``Trainer.step``).
 """

@@ -16,6 +16,13 @@ samples; kept pixels spare each sample the decode of a whole frame.
 ``data_stats`` counts the pairs and bytes kept in each form and the samples
 served from each.
 
+The median targets of a reconstruction batch are made together once its
+samples are drawn (``batches``): in one launch of kernel K4 on the card
+where the process sees one (``ops/median.py``), else on the host a crop at
+a time (``utils/image.py median_route``). Both give the exact median, so
+the batch is the same either way; ``data_stats`` counts the samples whose
+target each route made.
+
 Each sample dict has: image [H,W,3] float32 in [-1,1] NHWC, target (gt mask
 or normalized image in reconstruction mode), weights, text_mask, median.
 Samples stay NHWC numpy; the trainer makes NCHW tensors of them.
@@ -40,6 +47,7 @@ from ..utils.image import median_route, resize_linear, resize_nearest
 from ..utils import png
 from ..utils.png import (ImageFormatError, decode_png_color, decode_png_gray,
                          encode_png)
+from ..ops.median import median_u8_pinned
 from . import augment
 
 
@@ -144,10 +152,12 @@ class LectureNetDataset:
         self.total_foreground = 0
         self.total_background = 0
         # pairs and bytes kept by preload in each form, samples served from
-        # each; the hit share is from_pixels / (from_pixels + from_png)
+        # each (the hit share is from_pixels / (from_pixels + from_png)), and
+        # samples whose median target the card or the host made (the card's
+        # share is median_card / (median_card + median_host))
         self.data_stats = dict.fromkeys(
             ("pairs_pixels", "pairs_png", "bytes_kept", "from_pixels",
-             "from_png"), 0)
+             "from_png", "median_card", "median_host"), 0)
 
     @classmethod
     def from_config(cls, config: Config, image_list, ground_truth_list,
@@ -276,11 +286,17 @@ class LectureNetDataset:
     # ------------------------------------------------------------ sampling
 
     def sample(self, index: int) -> Dict[str, np.ndarray]:
-        """One augmented sample; its spans ``data.decode`` (tagged with the
-        pair's form), ``data.augment`` and ``data.masks``, and inside the
-        last ``data.median`` where the median target is made (tagged with
-        the route that made it, ``utils/image.py median_route``;
-        core/timing.py)."""
+        """One augmented sample (see ``_draw``), its median target made on
+        its own (``_medians``)."""
+        sample = self._draw(index)
+        if "median" in sample:
+            sample["median"] = self._medians([sample["median"]])[0]
+        return sample
+
+    def _draw(self, index: int) -> Dict[str, np.ndarray]:
+        """One augmented sample, with the uint8 crop in place of its median
+        target; its spans ``data.decode`` (tagged with the pair's form),
+        ``data.augment`` and ``data.masks`` (core/timing.py)."""
         rng = self.rng
         with span("data.decode", cpu=False) as decode:
             decode.tag, img, gt = self._get_pair(index)
@@ -319,10 +335,7 @@ class LectureNetDataset:
                                        / 255.0)[..., None]
 
             if self.reconstruct_median:
-                with span("data.median", cpu=False, tag=median_route()):
-                    median = augment.median_target(img,
-                                                   self.reconstruct_median_k)
-                sample["median"] = median.astype(np.float32) / 127.5 - 1.0
+                sample["median"] = img
 
             if self.reconstruction_mode:
                 sample["target"] = sample["image"]
@@ -336,14 +349,33 @@ class LectureNetDataset:
 
         return sample
 
+    def _medians(self, crops) -> np.ndarray:
+        """The float32 median targets of uint8 crops, a batch in one span
+        ``data.median`` tagged with the route that made them
+        (``utils/image.py median_route``): one launch of K4 on the card, or
+        a crop at a time on the host."""
+        route = median_route()
+        with span("data.median", cpu=False, tag=route):
+            if route == "cuda":
+                median = median_u8_pinned(crops, self.reconstruct_median_k)
+                self.data_stats["median_card"] += len(crops)
+            else:
+                median = np.stack([augment.median_target(
+                    crop, self.reconstruct_median_k) for crop in crops])
+                self.data_stats["median_host"] += len(crops)
+            return median.astype(np.float32) / 127.5 - 1.0
+
     def batches(self, batch_size: int, shuffle: bool = True):
         order = np.arange(len(self))
         if shuffle:
             self.rng.shuffle(order)
         for start in range(0, len(order) - batch_size + 1, batch_size):
             with span("data.batch"):
-                samples = [self.sample(int(i))
+                samples = [self._draw(int(i))
                            for i in order[start:start + batch_size]]
-                batch = {key: np.stack([s[key] for s in samples])
-                         for key in samples[0]}
+                batch = {}
+                for key in samples[0]:
+                    parts = [s[key] for s in samples]
+                    batch[key] = (self._medians(parts) if key == "median"
+                                  else np.stack(parts))
             yield batch

@@ -580,14 +580,21 @@ def median_blur(img: np.ndarray, ksize: int) -> np.ndarray:
     if ksize % 2 == 0 or not 1 < ksize < 256:
         raise ValueError(f"median ksize must be odd and in 3..255, got "
                          f"{ksize}")
-    if median_route() == "native":
+    if native.available():
         return native.median_u8(img, ksize)
     return _median_numpy(img, ksize)
 
 
 def median_route() -> str:
-    """The route ``median_blur`` takes: ``"native"`` where the native library
-    builds, else ``"numpy"``."""
+    """The route of the training data's median targets (``train/dataset.py``):
+    ``"cuda"`` where the process sees a card (kernel K4, ``ops/median.py``,
+    a batch a launch), else ``median_blur``'s, a crop at a time: ``"native"``
+    where the native library builds, else ``"numpy"``. A child forked after
+    its parent used the card cannot use it, and takes the host's route."""
+    import torch
+
+    if not torch.cuda._is_in_bad_fork() and torch.cuda.is_available():
+        return "cuda"
     return "native" if native.available() else "numpy"
 
 

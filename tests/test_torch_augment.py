@@ -12,6 +12,7 @@ import sys
 import cv2
 import numpy as np
 import pytest
+import torch
 from torch.profiler import ProfilerActivity, profile
 
 from lecturemath_tpu.train import augment as jaug
@@ -19,6 +20,7 @@ from lecturemath_tpu.train.dataset import LectureNetDataset as JAXDataset
 from lecturemath_tpu.utils.synthetic import synthetic_rgb_lecture
 from lecturemath_tpu_torch import native
 from lecturemath_tpu_torch.core import timing
+from lecturemath_tpu_torch.ops.median import median_u8_batch
 from lecturemath_tpu_torch.train import augment as taug
 from lecturemath_tpu_torch.train import dataset as dataset_module
 from lecturemath_tpu_torch.train.dataset import (ImageFormatError,
@@ -371,7 +373,40 @@ def test_decode_span_names_the_pairs_form(image_files, monkeypatch):
     assert dropped == 0 and len(tags) == 8
     assert sorted(tags[:4]) == ["png"] * 4 and tags[4:] == [None] * 4
     assert split_stats["pairs_png"] == 4
-    assert files.data_stats == dict.fromkeys(files.data_stats, 0)
+    # a dataset reading its files counts no pair's form, only the medians
+    # its four samples were given on the host
+    assert files.data_stats == dict(dict.fromkeys(files.data_stats, 0),
+                                    median_host=4)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_median_targets_count_their_route_and_agree_across_routes(
+        image_files, monkeypatch, seed):
+    """Without a card every sample's median target is made on the host and
+    counted under ``median_host``. The card's route, its K4 call stood in
+    for by the plain version, gives the same batches over two epochs from
+    one call a batch, and counts ``median_card``."""
+    images, _ = image_files
+    options = _preload_options(True)
+    host = LectureNetDataset(images, None, reconstruction_mode=True,
+                             seed=seed, **options)
+    host_epochs = _epochs(host)
+    assert (host.data_stats["median_host"],
+            host.data_stats["median_card"]) == (8, 0)
+    calls = []
+
+    def plain_pinned(crops, k):
+        calls.append(len(crops))
+        return median_u8_batch(torch.from_numpy(np.stack(crops)), k).numpy()
+
+    monkeypatch.setattr(dataset_module, "median_route", lambda: "cuda")
+    monkeypatch.setattr(dataset_module, "median_u8_pinned", plain_pinned)
+    card = LectureNetDataset(images, None, reconstruction_mode=True,
+                             seed=seed, **options)
+    _assert_same_batches(_epochs(card), host_epochs)
+    assert calls == [2] * 4
+    assert (card.data_stats["median_host"],
+            card.data_stats["median_card"]) == (0, 8)
 
 
 def test_preload_budget_is_half_the_available_memory():

@@ -21,6 +21,8 @@ from lecturemath_tpu_torch.ops.cc_label import (compact_labels,
 from lecturemath_tpu_torch.ops.cc_label_pallas import label_components_tiled
 from lecturemath_tpu_torch.ops.conv7 import (conv7_same, conv_same_nhwc,
                                              conv_same_plain)
+from lecturemath_tpu_torch.ops.median import (median_u8_batch,
+                                              median_u8_plain)
 from lecturemath_tpu_torch.ops.postprocess import (threshold_pack,
                                                    threshold_pack_plain)
 
@@ -383,6 +385,88 @@ def test_cc_label_refuses_what_the_kernel_does_not_take(cuda):
         label_components_batch(binary.transpose(1, 2))
     with pytest.raises(ValueError, match=r"\[H, W\]"):
         label_components(binary)
+
+
+# --- K4: the batch median of the reconstruction phase's targets
+
+@pytest.mark.parametrize("pattern", ["random", "constant", "stripes"])
+@pytest.mark.parametrize("k", [3, 5, 35, 255])
+@pytest.mark.parametrize("shape", [(8, 256, 256, 3), (2, 256, 256, 1),
+                                   (1, 37, 53, 3)])
+def test_median_kernel_equals_native(cuda, shape, k, pattern):
+    """Byte for byte ``native.median_u8`` an image at a time; the last
+    shape is smaller than most windows, so the replicated border decides."""
+    from test_torch_median import crops
+
+    batch = torch.from_numpy(crops(pattern, shape, seed=k))
+    before = median_u8_batch.launches
+    ours = median_u8_batch(batch.to(cuda), k)
+    torch.cuda.synchronize()
+    assert median_u8_batch.launches == before + 1
+    np.testing.assert_array_equal(ours.cpu().numpy(),
+                                  median_u8_plain(batch, k).numpy())
+
+
+def test_median_kernel_refuses_what_it_does_not_take(cuda):
+    crops = torch.zeros(2, 16, 16, 3, dtype=torch.uint8, device=cuda)
+    for view in (crops.transpose(1, 2), crops[:, :, ::2]):
+        with pytest.raises(ValueError, match="contiguous"):
+            median_u8_batch(view, 3)
+    with pytest.raises(ValueError, match="odd"):
+        median_u8_batch(crops, 4)
+    with pytest.raises(TypeError, match="uint8"):
+        median_u8_batch(crops.float(), 3)
+    with pytest.raises(ValueError, match=r"\[B, H, W, C\]"):
+        median_u8_batch(crops[0], 3)
+
+
+def test_reconstruction_batches_on_the_card_equal_the_hosts(cuda, tmp_path,
+                                                            monkeypatch):
+    """A process that sees a card takes K4's route. Two epochs of
+    ``batches(8)`` from one seed at the recipe's crop and k = 35, drawn on
+    a prefetch thread with the medians made by K4 (one launch a batch) and
+    on the host: equal key for key, dtype and value."""
+    from lecturemath_tpu_torch.train import dataset as dataset_module
+    from lecturemath_tpu_torch.train.dataset import LectureNetDataset
+    from lecturemath_tpu_torch.train.prefetch import prefetch
+    from lecturemath_tpu_torch.utils.png import encode_png
+    from lecturemath_tpu_torch.utils.synthetic import synthetic_rgb_lecture
+
+    rgb, _, _, _ = synthetic_rgb_lecture(seed=11, n_frames=16, height=300,
+                                         width=400)
+    images = []
+    for k, frame in enumerate(rgb):
+        path = tmp_path / f"{k}.png"
+        path.write_bytes(encode_png(np.ascontiguousarray(frame[:, :, ::-1])))
+        images.append(str(path))
+
+    assert dataset_module.median_route() == "cuda"
+
+    def epochs(route):
+        monkeypatch.setattr(dataset_module, "median_route", lambda: route)
+        dataset = LectureNetDataset(
+            images, None, reconstruction_mode=True, crop_size=(256, 256),
+            flip_chance=0.5, color_invert_chance=0.5, color_change_chance=0.5,
+            gaussian_noise_chance=0.5, reconstruct_median=True,
+            reconstruct_median_k=35, seed=5)
+        dataset.preload()
+        drawn = [list(prefetch(dataset.batches(8), 2)) for _ in range(2)]
+        return dataset.data_stats, drawn
+
+    before = median_u8_batch.launches
+    card_stats, on_card = epochs("cuda")
+    assert median_u8_batch.launches == before + 4
+    host_stats, on_host = epochs("native")
+    assert median_u8_batch.launches == before + 4
+    assert (card_stats["median_card"], card_stats["median_host"]) == (32, 0)
+    assert (host_stats["median_card"], host_stats["median_host"]) == (0, 32)
+    for card_epoch, host_epoch in zip(on_card, on_host):
+        assert len(card_epoch) == len(host_epoch) == 2
+        for a, b in zip(card_epoch, host_epoch):
+            assert list(a) == list(b)
+            for key in b:
+                assert a[key].dtype == b[key].dtype, key
+                np.testing.assert_array_equal(a[key], b[key], err_msg=key)
 
 
 # --- K2 with the model's cached packed weights, and the serving path: one

@@ -350,9 +350,11 @@ def test_training_epoch_spans(tmp_path):
 @pytest.mark.parametrize("route", ["native", "numpy"])
 def test_median_span_a_sample_only_where_the_median_is_made(
         tmp_path, monkeypatch, route):
-    """``data.median``: once a sample, inside its ``data.masks``, tagged with
-    the route that made the median, and only while a profiler runs; a
-    binarizer-phase dataset (no median target) records none."""
+    """``data.median``: once a batch, inside its ``data.batch`` and beside
+    its samples' ``data.masks``, tagged with the route that made the
+    medians, and only while a profiler runs; a sample drawn on its own
+    makes its median in a span of its own; a binarizer-phase dataset (no
+    median target) records none."""
     from lecturemath_tpu_torch import native
     from lecturemath_tpu_torch.utils.image import median_route
 
@@ -380,10 +382,15 @@ def test_median_span_a_sample_only_where_the_median_is_made(
     records = taken()
     seq = {r.seq: r for r in records}
     medians = [r for r in records if r.name == "data.median"]
-    assert len(medians) == counts(records)["data.masks"] == 4
+    assert counts(records)["data.masks"] == 4
+    assert len(medians) == counts(records)["data.batch"] == 2
     for r in medians:
-        assert seq[r.parent].name == "data.masks"
+        assert seq[r.parent].name == "data.batch"
         assert r.tag == route and r.cpu_ns is None
+    with traced():
+        reconstruction.sample(0)
+    n = counts(taken())
+    assert n["data.masks"] == n["data.median"] == 1
     binarizer = LectureNetDataset(images, truths, crop_size=(32, 32),
                                   text_mask_expansion=3, seed=0)
     with traced():
