@@ -664,7 +664,7 @@ def phase_main_path(conf, counters):
 
     # warm-up batch (cuDNN algorithm choice, allocator): not part of the run
     warm = np.stack([source.rgb_frame(t) for t in range(8)])
-    binarizer._packed_fn(torch.from_numpy(warm).cuda())
+    binarizer.packed_fn(torch.from_numpy(warm).cuda())
     torch.cuda.synchronize()
 
     for fn in counters.values():
@@ -709,7 +709,7 @@ def phase_main_path(conf, counters):
     pick = [0, 30, 60, 119, 120, 150, 200, 239]
     frames = torch.from_numpy(np.stack([source.rgb_frame(t) for t in pick]))
     kernel_bits = unpack_bits_host(
-        binarizer._packed_fn(frames.cuda()).cpu().numpy(), WIDTH)
+        binarizer.packed_fn(frames.cuda()).cpu().numpy(), WIDTH)
     plain_bits = unpack_bits_host(make_packed_binarizer(plain_bin.model)(
         frames.cuda()).cpu().numpy(), WIDTH)
     flip_rate = float(np.mean(kernel_bits != plain_bits))
@@ -1524,7 +1524,7 @@ def forward_and_pack_launches(binarizer, frames):
             conv.bias.detach().float().contiguous()
 
     counts = []
-    for run in (lambda: binarizer._packed_fn(frames), pack):
+    for run in (lambda: binarizer.packed_fn(frames), pack):
         run()
         torch.cuda.synchronize()
         _, spans = profiled_spans(run)
@@ -1569,7 +1569,7 @@ def stage01_host_paths(config):
     for filt in ("lanczos", "area"):
         binarizer = Binarizer.from_config(config, batch_size=4,
                                           downscale_filter=filt)
-        assert binarizer._packed_fn is not None
+        assert binarizer.packed_fn is not None
         binarizer.process_source(ArraySource(frames))   # first use
         (_, _, binaries), ms = per_frame_ms(
             lambda: binarizer.process_source(ArraySource(frames)), 4)
@@ -1579,7 +1579,7 @@ def stage01_host_paths(config):
         small, ms = per_frame_ms(
             lambda: _downscale_batch(frames, half, filt), 4)
         host_ms[f"3840x2160 halve {filt}"] = ms
-        bits = binarizer._packed_fn(torch.from_numpy(small).cuda())
+        bits = binarizer.packed_fn(torch.from_numpy(small).cuda())
         direct = unpack_bits_host(bits.cpu().numpy(), half[0])
         back, ms = per_frame_ms(lambda: [resize_nearest(b, (3840, 2160))
                                          for b in direct], 4)
@@ -1722,7 +1722,7 @@ def phase_serving(conf, counters):
             graph = active.graphs[bucket]
             with active.stream_context():
                 graph_bits = graph.run(batch).clone()
-            eager_bits = binarizer._packed_fn(torch.from_numpy(batch).cuda())
+            eager_bits = binarizer.packed_fn(torch.from_numpy(batch).cuda())
             plain_bits = plain_fn(torch.from_numpy(batch).cuda())
             torch.cuda.synchronize()
             identical = bool(torch.equal(graph_bits, eager_bits))
@@ -1730,7 +1730,7 @@ def phase_serving(conf, counters):
                                   != unpack(plain_bits, WIDTH)))
             static_in = graph.static_in
             graph_ms = cuda_ms(graph.graph.replay, 20)
-            eager_ms = cuda_ms(lambda: binarizer._packed_fn(static_in), 20)
+            eager_ms = cuda_ms(lambda: binarizer.packed_fn(static_in), 20)
             dispatch = {}
             for name, svc in (("graph", service), ("eager", eager_service),
                               ("graph again", service),
@@ -1782,7 +1782,7 @@ def phase_serving(conf, counters):
     def direct(frame):
         resized = (frame if frame.shape[:2] == (HEIGHT, WIDTH)
                    else resize_area(frame, (WIDTH, HEIGHT)))
-        bits = binarizer._packed_fn(torch.from_numpy(resized[None]).cuda())
+        bits = binarizer.packed_fn(torch.from_numpy(resized[None]).cuda())
         binary = unpack_bits_host(bits.cpu().numpy(), WIDTH)[0]
         if binary.shape != frame.shape[:2]:
             binary = resize_nearest(binary, (frame.shape[1], frame.shape[0]))
@@ -1914,7 +1914,7 @@ def phase_serving(conf, counters):
         def references(model_binarizer):
             refs = set()
             for bucket in service.batch_buckets:
-                bits = model_binarizer._packed_fn(torch.from_numpy(
+                bits = model_binarizer.packed_fn(torch.from_numpy(
                     np.stack([frame] * bucket)).cuda())
                 for binary in unpack_bits_host(bits.cpu().numpy(), WIDTH):
                     refs.add(binary.tobytes())
@@ -2403,7 +2403,7 @@ def training_inference(conf, binarizer_path, net_config, host_batch):
     frames = torch.from_numpy(np.stack([source.rgb_frame(t)
                                         for t in pick])).cuda()
     before = conv_same_nhwc.launches
-    kernel_bits = unpack_bits_host(binarizer._packed_fn(frames).cpu().numpy(),
+    kernel_bits = unpack_bits_host(binarizer.packed_fn(frames).cpu().numpy(),
                                    WIDTH)
     if conv_same_nhwc.launches != before + 4:
         raise AssertionError("the trained binarizer did not run K2's four "
@@ -2809,7 +2809,7 @@ def eval_breakdown(conf, model):
         batch = max(1, 8_000_000 // (shape[0] * shape[1]))
         tensor = torch.from_numpy(
             np.stack([kf.raw_image for kf in kfs[:batch]])).cuda()
-        ms = cuda_ms(lambda: binarizer._binarize_fn(tensor), reps=5)
+        ms = cuda_ms(lambda: binarizer.full_outputs(tensor), reps=5)
         kfps[f"{shape[1]}x{shape[0]}"] = len(tensor) / ms * 1000.0
         log(f"binarizer at {shape[1]}x{shape[0]}, batch {len(tensor)}: "
             f"{ms:.3f} ms a batch (CUDA events) = "
@@ -3296,7 +3296,7 @@ def phase_scale_out(conf, counters, card):
     plain = Binarizer.from_config(config)
     meshed = Binarizer.from_config(config, mesh=make_mesh(MeshSpec(1, 1)))
     for binarizer in (plain, meshed):  # cuDNN's choice, the allocator
-        binarizer._packed_fn(torch.from_numpy(np.stack(
+        binarizer.packed_fn(torch.from_numpy(np.stack(
             [make_source().rgb_frame(t) for t in range(8)])).cuda())
 
     # the scale-out path: the mesh runs' launches count, the meshless
@@ -3507,7 +3507,7 @@ def worker_express(conf, summary, card):
     driver = PipelineDriver.from_config_path(conf, [], None, None)
     lecture = driver.database.lectures[0]
     plain = Binarizer.from_config(driver.config)
-    plain._packed_fn(torch.from_numpy(np.stack(
+    plain.packed_fn(torch.from_numpy(np.stack(
         [make_source().rgb_frame(t) for t in range(8)])).cuda())
     plain_fps, plain_frames = stream_fps(plain)
     del plain
@@ -5187,7 +5187,7 @@ def axis_channel_lecture(conf, counters, summary, card):
     batch = torch.from_numpy(np.stack(
         [source.rgb_frame(t) for t in range(AXIS_BATCH)])).cuda()
     for binarizer in (meshed, meshless):   # cuDNN's choice, the allocator
-        binarizer._packed_fn(batch)
+        binarizer.packed_fn(batch)
     t0 = time.perf_counter()
     (indices, times, keyframes), launches, peak = axis_counted(
         counters, lambda: run_lecture(driver, lecture, meshed,
@@ -5204,9 +5204,9 @@ def axis_channel_lecture(conf, counters, summary, card):
                              "differs from phase 4's")
     pick = [0, 30, 60, 119, 120, 150, 200, 239]
     frames = torch.from_numpy(np.stack([source.rgb_frame(t) for t in pick]))
-    ours = unpack_bits_host(meshed._packed_fn(frames.cuda()).cpu().numpy(),
+    ours = unpack_bits_host(meshed.packed_fn(frames.cuda()).cpu().numpy(),
                             WIDTH)
-    bf16 = unpack_bits_host(meshless._packed_fn(frames.cuda()).cpu()
+    bf16 = unpack_bits_host(meshless.packed_fn(frames.cuda()).cpu()
                             .numpy(), WIDTH)
     state = load_checkpoint(os.path.join(WORKSPACE, "models", "smoke.dat"))
     f32 = plain_bits(state, meshed.model.config, frames)
@@ -5222,13 +5222,13 @@ def axis_channel_lecture(conf, counters, summary, card):
                               mesh=card_mesh(1, 2), dtype=torch.bfloat16),
              "meshless": Binarizer(model, batch_size=AXIS_BATCH,
                                    dtype=torch.bfloat16)}
-    trunk["1x2"]._packed_fn(frames.cuda())
+    trunk["1x2"].packed_fn(frames.cuda())
     trunk_bits, trunk_launches, _ = axis_counted(
-        counters, lambda: trunk["1x2"]._packed_fn(frames.cuda()))
+        counters, lambda: trunk["1x2"].packed_fn(frames.cuda()))
     axis_gate("(a) seeded weights, channels 1x2", trunk_launches, 2, 1)
     trunk_bits = unpack_bits_host(trunk_bits.cpu().numpy(), WIDTH)
     trunk_bf16 = flips(trunk_bits, unpack_bits_host(
-        trunk["meshless"]._packed_fn(frames.cuda()).cpu().numpy(), WIDTH))
+        trunk["meshless"].packed_fn(frames.cuda()).cpu().numpy(), WIDTH))
     trunk_f32 = flips(trunk_bits,
                       plain_bits(random_state, model.config, frames))
     if trunk_bf16[1] > AXIS_MAX_FLIPS_VS_BF16 or \
@@ -5236,11 +5236,11 @@ def axis_channel_lecture(conf, counters, summary, card):
         raise AssertionError(f"(a) seeded weights: flip rates {trunk_bf16}, "
                              f"{trunk_f32}")
     del trunk, model
-    ms = {"1x2": cuda_ms(lambda: meshed._packed_fn(batch), AXIS_REPS),
-          "meshless": cuda_ms(lambda: meshless._packed_fn(batch),
+    ms = {"1x2": cuda_ms(lambda: meshed.packed_fn(batch), AXIS_REPS),
+          "meshless": cuda_ms(lambda: meshless.packed_fn(batch),
                               AXIS_REPS)}
     for which, binarizer in (("1x2", meshed), ("meshless", meshless)):
-        device_breakdown(lambda: binarizer._packed_fn(batch),
+        device_breakdown(lambda: binarizer.packed_fn(batch),
                          f"model axis (a) {which}, a batch of {AXIS_BATCH}")
     log(f"model axis (a) channels 1x2, express over {N_FRAMES} frames "
         f"{WIDTH}x{HEIGHT} in batches of {AXIS_BATCH} at {fps:.2f} fps end "

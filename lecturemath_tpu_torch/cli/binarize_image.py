@@ -7,7 +7,7 @@ Usage: python -m lecturemath_tpu_torch.cli.binarize_image config model image
 
 The image is read as the serving surface reads a request body (PNG in
 numpy; other formats through OpenCV where it is installed), runs through
-``Binarizer._binarize_fn`` (kernel K2 on the head convs on the card), and the
+``Binarizer.full_outputs`` (kernel K2 on the head convs on the card), and the
 three PNGs are written by ``utils/png.py``, byte for byte as ``cv2.imwrite``
 writes them. It runs on the card unless ``-device cpu`` is given.
 """
@@ -43,7 +43,7 @@ def main(argv=None):
 
     with open(positional[2], "rb") as f:
         rgb = decode_image(f.read())
-    binary, text_mask, rec = binarizer._binarize_fn(
+    binary, text_mask, rec = binarizer.full_outputs(
         torch.from_numpy(rgb[None].copy()).to(device))
 
     prefix = (positional[3] if len(positional) > 3

@@ -5,7 +5,7 @@ Usage: python -m lecturemath_tpu_torch.cli.eval_text_detector <config>
        <model> [-device cpu]
 (reference equivalent: lecturenet_eval_pretrain_text_detector.py)
 
-Each image runs through ``Binarizer._binarize_fn`` on the card (kernel K2
+Each image runs through ``Binarizer.full_outputs`` on the card (kernel K2
 on the head convs) unless ``-device cpu`` is given. PNG images and masks
 are read without OpenCV (``utils/png.py``, as ``cv2.imread`` reads them);
 JPEG ones need OpenCV.
@@ -60,7 +60,7 @@ def main(argv=None):
         image = read_image(img_path)[:, :, ::-1]
         gt_mask = read_image(mask_path, grayscale=True)
 
-        binary, _, _ = binarizer._binarize_fn(
+        binary, _, _ = binarizer.full_outputs(
             torch.from_numpy(image[None].copy()).to(binarizer.device))
         pred_ink = 255 - binary[0].cpu().numpy()  # model output: ink = 0
 

@@ -22,6 +22,7 @@ sees foreground ink as nonzero.
 
 from __future__ import annotations
 
+import collections
 import itertools
 import os
 import queue
@@ -36,13 +37,16 @@ from ..core.device import resolve_device
 from ..core.timing import span
 from ..models.convert import load_checkpoint
 from ..models.fcn_lecturenet import (FCNConfig, FCNLectureNet, fold_model,
-                                     init_weights, unpack_bits_host)
+                                     init_weights, rgb_to_yuv420_host,
+                                     unpack_bits_host)
 from ..parallel.inference import group_binarizers, pad_rows, sharded_forward
 from ..parallel.mesh import check_mesh, process_count, shard_params
 from ..utils.image import halve_lanczos, resize_area, resize_nearest
-from .video import VideoFrameSource
+from .video import VideoFrameSource, batched
 
 MAX_BATCH = 96
+# batches in flight on the device beyond the one being drained
+PIPELINE_DEPTH = 2
 # device bytes per model pixel for a batch: the production-width forward in
 # bf16 keeps about 450 B/px of activations live at its peak (up_1's skip,
 # deconv and concat at full resolution), plus the f32 input and the
@@ -154,36 +158,37 @@ class _HostCopies:
             self._free.put(buffer)
 
 
-class _AsyncDrainer:
-    """Background drain thread for ``Binarizer.stream_source``.
+class _Drainer:
+    """The drain of ``Binarizer.stream_source``: keeps up to ``depth``
+    batches in flight beyond the one being drained, and hands back their
+    ``drain_fn`` results in batch order.
 
-    In the synchronous stream, host unpacking only progresses while the
-    generator is being pulled — any host work the CONSUMER does between
-    batches (CC tracking, PNG encode) stops it, so at scale wall ~=
-    transfers + consumer work. This thread waits for batch k+1's copy event
-    and unpacks it while the consumer processes batch k
-    (``torch.cuda.Event.synchronize`` releases the GIL).
-
-    Yield order, values, and the in-flight bound (``depth`` batches beyond
-    the one being drained) are identical to the synchronous path. The
-    consumer's blocked time on the results is the span ``stage01.wait``,
-    tagged with the batch number (results come out in batch order)."""
+    ``threaded``: the drain runs on the ``lm-stream-drain`` thread, which
+    waits for batch k+1's copy event and unpacks it while the consumer does
+    its host work on batch k (CC tracking, PNG encode;
+    ``torch.cuda.Event.synchronize`` releases the GIL); the consumer's
+    blocked time on the results is the span ``stage01.wait``, tagged with
+    the batch number. Otherwise each drain runs inline when the in-flight
+    bound forces it. Both give the same results in the same order."""
 
     _DONE = object()
 
-    def __init__(self, drain_fn, depth: int):
-        import threading
-
+    def __init__(self, drain_fn, depth: int, threaded: bool):
         self._drain_fn = drain_fn
         self._depth = depth
-        self._in = queue.Queue()
-        self._out = queue.Queue(maxsize=depth + 2)
-        self._stop = False
+        self._pending = collections.deque()   # inline: entries not drained
         self._inflight = 0
+        self._stop = False
         self._taken = 0
-        self._thread = threading.Thread(target=self._run, daemon=True,
-                                        name="lm-stream-drain")
-        self._thread.start()
+        self._thread = None
+        if threaded:
+            import threading
+
+            self._in = queue.Queue()
+            self._out = queue.Queue(maxsize=depth + 2)
+            self._thread = threading.Thread(target=self._run, daemon=True,
+                                            name="lm-stream-drain")
+            self._thread.start()
 
     def _run(self):
         while True:
@@ -211,6 +216,9 @@ class _AsyncDrainer:
         return False
 
     def _take(self):
+        self._inflight -= 1
+        if self._thread is None:
+            return self._drain_fn(self._pending.popleft())
         with span("stage01.wait", tag=self._taken):
             item = self._out.get()
         self._taken += 1
@@ -220,13 +228,15 @@ class _AsyncDrainer:
         if kind == "err":
             self._stop = True
             raise val
-        self._inflight -= 1
         return val
 
     def push(self, entry):
         """Queue one in-flight entry; returns [result] when the in-flight
-        bound forces a drain (same cadence as the synchronous path)."""
-        self._in.put(entry)
+        bound forces a drain."""
+        if self._thread is None:
+            self._pending.append(entry)
+        else:
+            self._in.put(entry)
         self._inflight += 1
         if self._inflight > self._depth:
             return [self._take()]
@@ -234,13 +244,16 @@ class _AsyncDrainer:
 
     def finish(self):
         """Yield the remaining in-flight results in order."""
-        self._in.put(self._DONE)
+        if self._thread is not None:
+            self._in.put(self._DONE)
         while self._inflight:
             yield self._take()
 
     def close(self):
         """Abandonment path (consumer broke out of the generator): unblock
         and discard; the daemon thread exits on its next queue interaction."""
+        if self._thread is None:
+            return
         self._stop = True
         self._in.put(self._DONE)
         try:
@@ -252,24 +265,23 @@ class _AsyncDrainer:
 
 class Binarizer:
     """Batched binarizer for a stream of RGB frames, on ``cuda`` unless
-    ``device='cpu'``."""
+    ``device='cpu'``. It alone decides how a batch reaches the device and
+    comes back: ``dispatch`` (host batch -> packed bits on the device, the
+    batch function ``packed_fn``), ``fit_upload`` (the upload format for a
+    frame size), ``fetch`` (the bounded copy back) and ``full_outputs``
+    (binary, text mask and reconstruction)."""
 
     def __init__(self, model: FCNLectureNet,
-                 batch_size: Optional[int] = None, force_binary: bool = True,
-                 threshold: int = 128,
-                 pipeline_depth: Optional[int] = None, mesh=None,
-                 fold_bn: bool = True,
-                 upload_format: str = "auto", downscale: str = "host",
-                 downscale_filter: str = "lanczos",
+                 batch_size: Optional[int] = None, threshold: int = 128,
+                 mesh=None, upload_format: str = "auto",
+                 downscale: str = "host", downscale_filter: str = "lanczos",
                  max_model_pixels: int = 2_500_000,
-                 async_drain: Optional[bool] = None,
                  device: Optional[Union[str, torch.device]] = None,
                  dtype: Optional[torch.dtype] = None):
-        """``model`` carries the weights (f32 preferred: ``fold_bn`` folds
-        in f32 before the cast to ``dtype``; None keeps the model's dtype).
-
-        ``fold_bn`` (default): fold BatchNorm affines into the conv weights
-        for inference (models.fcn_lecturenet.fold_model).
+        """``model`` carries the weights (f32 preferred: a model whose
+        BatchNorms are not folded yet is folded in f32, by
+        models.fcn_lecturenet.fold_model, before the cast to ``dtype``; None
+        keeps the model's dtype).
 
         ``upload_format``: 'rgb' ships raw uint8 RGB to the device;
         'yuv420' converts to I420 planes on host and reconstructs RGB on
@@ -280,8 +292,7 @@ class Binarizer:
         ``downscale``: where the >2.5MP halving (resolve_model_size) runs.
         'host' (default) halves before upload with the reference-parity PIL
         LANCZOS filter; 'device' uploads full-res frames and box-halves on
-        the card (device_halve; packed path only). Config:
-        DOWNSCALE_PLACEMENT.
+        the card (device_halve; stream only). Config: DOWNSCALE_PLACEMENT.
 
         ``downscale_filter``: host filter — 'lanczos' (reference parity,
         FCN_lecturenet.py:436) or 'area' (cv2 INTER_AREA). Config:
@@ -289,13 +300,6 @@ class Binarizer:
 
         ``max_model_pixels``: the halving cap (reference: 2.5 MP,
         FCN_lecturenet.py:434). Config: BINARIZATION_MAX_PIXELS.
-
-        ``async_drain`` (default on): unpack stream results on a background
-        thread so they overlap the consumer's host work between batches
-        (see _AsyncDrainer). Yield order and values are identical. Forced
-        off in a world of several processes: the gather of every process's
-        rows is a collective and must keep the processes' program order.
-        Config: STREAM_ASYNC_DRAIN.
 
         ``mesh`` (parallel/mesh.py ``make_mesh``): one replica of the model
         per local device of the mesh, which replaces ``device``; each
@@ -314,7 +318,7 @@ class Binarizer:
             self.device = mesh.device
         else:
             self.device = resolve_device(device)
-        if fold_bn and not model.fold_bn:
+        if not model.fold_bn:
             model = fold_model(model)
         model = model.to(device=self.device, dtype=dtype or model.dtype,
                          memory_format=torch.channels_last).eval()
@@ -332,19 +336,12 @@ class Binarizer:
             data_size = mesh.shape["data"]
             batch_size = -(-batch_size // data_size) * data_size
         self.batch_size = batch_size
-        self.force_binary = force_binary
         self.threshold = threshold
-        if pipeline_depth is None:
-            pipeline_depth = 2
-        self.pipeline_depth = max(1, pipeline_depth)
         self._binarize_fns = self._group_fns(packed=False)
-        self._binarize_fn = self._binarize_fns[0]
         # the binary output alone, of every model group
         self._binary_fns = [lambda x, fn=fn: fn(x)[0]
                             for fn in self._binarize_fns]
-        if not force_binary:
-            upload_format = "rgb"  # full-output path stays RGB
-        elif upload_format == "auto":
+        if upload_format == "auto":
             upload_format = "rgb"
         if upload_format not in ("rgb", "yuv420"):
             raise ValueError(f"unknown upload format: {upload_format!r}")
@@ -353,34 +350,39 @@ class Binarizer:
             raise ValueError(f"unknown downscale placement: {downscale!r}")
         if downscale_filter not in ("lanczos", "area"):
             raise ValueError(f"unknown downscale filter: {downscale_filter!r}")
-        if downscale == "device" and not force_binary:
-            downscale = "host"  # full-output path keeps host-side parity
         self.downscale = downscale
         self.downscale_filter = downscale_filter
         self.max_model_pixels = max_model_pixels
-        self.async_drain = ((True if async_drain is None
-                             else bool(async_drain))
-                            and process_count() == 1)
-        self._packed_fn = None
-        self._packed_fn_key = None
-        if force_binary:
-            self._make_packed(upload_format, 0)
+        self._make_packed(upload_format, 0)
 
     def _group_fns(self, **kwargs):
         """``group_binarizers`` of every local model group: one replica
         each on a data-only mesh, channel shards on a model axis."""
         return group_binarizers(self.mesh, self._replicas, "channel",
-                                threshold=self.threshold,
-                                force_binary=self.force_binary, **kwargs)
+                                threshold=self.threshold, **kwargs)
 
     def _make_packed(self, input_format: str, pre_halvings: int) -> None:
         """The packed batch function of every model group
-        (``_packed_fn``: the first's)."""
-        self._packed_fns = self._group_fns(packed=True,
-                                           input_format=input_format,
-                                           pre_halvings=pre_halvings)
-        self._packed_fn = self._packed_fns[0]
-        self._packed_fn_key = (input_format, pre_halvings)
+        (``packed_fns``; ``packed_fn`` is the first's)."""
+        self.packed_fns = self._group_fns(packed=True,
+                                          input_format=input_format,
+                                          pre_halvings=pre_halvings)
+        self._packed_key = (input_format, pre_halvings)
+
+    @property
+    def packed_fn(self):
+        """uint8 frames in the upload format, on the device -> the packed
+        binary bitmap [B, h, ceil(w/8)] (kernel K1 on the card)."""
+        return self.packed_fns[0]
+
+    def fit_upload(self, size: Tuple[int, int], pre_halvings: int = 0) -> None:
+        """Make ``packed_fn`` take uploads of ``size`` (width, height),
+        box-halved ``pre_halvings`` times on the device: I420 needs an even
+        width and a height divisible by 4 there, else the upload is RGB."""
+        if self.upload_format == "yuv420" and (size[0] % 2 or size[1] % 4):
+            self.upload_format = "rgb"
+        if self._packed_key != (self.upload_format, pre_halvings):
+            self._make_packed(self.upload_format, pre_halvings)
 
     def _run(self, fns, frames: np.ndarray) -> torch.Tensor:
         """The batch function ``fns[g]`` of model group g over ``frames``
@@ -411,8 +413,6 @@ class Binarizer:
         kwargs.setdefault("max_model_pixels",
                           config.get_int("BINARIZATION_MAX_PIXELS",
                                          2_500_000))
-        kwargs.setdefault("async_drain",
-                          config.get_bool("STREAM_ASYNC_DRAIN", True))
 
         model_dir = config.get_str("BINARIZATION_FCN_LECTURENET_DIR", "models")
         model_file = config.get_str("BINARIZATION_FCN_LECTURENET_FILENAME",
@@ -440,7 +440,20 @@ class Binarizer:
     def _to_device(self, frames: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
 
-    def _fetch(self, tensor: torch.Tensor) -> np.ndarray:
+    def dispatch(self, frames: np.ndarray, run=None) -> torch.Tensor:
+        """uint8 RGB [B, H, W, 3] on the host, at the size ``fit_upload``
+        was given -> ``packed_fn``'s bitmap of every frame, on
+        ``self.device`` (queued, not waited for): converted to I420 on the
+        host where the upload format says so, uploaded, run. ``run`` takes
+        the host batch in the upload format instead (a CUDA graph of
+        ``packed_fn`` that stages and uploads it itself)."""
+        if self.upload_format == "yuv420":
+            frames = rgb_to_yuv420_host(frames)
+        if run is not None:
+            return run(frames)
+        return self._run(self.packed_fns, frames)
+
+    def fetch(self, tensor: torch.Tensor) -> np.ndarray:
         """Bounded device -> host copy. On the card the copy is queued into
         pinned memory behind a CUDA event, and a daemon thread waits on the
         event with a deadline (LM_FETCH_TIMEOUT_S, default 900 s; <= 0
@@ -461,26 +474,29 @@ class Binarizer:
                 f"or set LM_FETCH_TIMEOUT_S to adjust/disable this "
                 f"deadline") from None
 
+    def full_outputs(self, frames: torch.Tensor):
+        """uint8 RGB [B, H, W, 3] on the device -> (binary, text mask,
+        reconstruction) on the device: uint8 [B, H, W] {0, 255} twice and
+        uint8 [B, H, W, 3]."""
+        return self._binarize_fns[0](frames)
+
     def binarize_frames(self, frames: np.ndarray) -> np.ndarray:
         """uint8 RGB [B, H, W, 3] -> uint8 binary [B, H, W] in the raw model
         polarity (a trained model emits ink=0 on a 255 background)."""
         n = len(frames)
         if self.mesh is not None:
             frames = pad_rows(np.asarray(frames), self.mesh.shape["data"])
-        return self._fetch(self._run(self._binary_fns, frames))[:n]
+        return self.fetch(self._run(self._binary_fns, frames))[:n]
 
     def stream_source(self, source: VideoFrameSource, frames_limit: int = 0,
                       invert: bool = True):
         """Generator over drained batches: yields (times, indices, frames)
-        with up to ``pipeline_depth`` batches still in flight on the device.
+        with up to ``PIPELINE_DEPTH`` batches still in flight on the device.
         Consumers doing host work between batches (CC tracking, PNG encode)
         overlap it with device compute — express wall-clock approaches
         max(host, device) instead of their sum."""
-        first = None
-        model_size = None
-        full_size = None
-        use_packed = self._packed_fn is not None
-        pending = []  # (copy handle, batch, number) — drained behind
+        model_size = full_size = None
+        device_halvings = 0
         # per-phase wall accounting for the last stream (observability:
         # where stage-01 time goes — host decode/batch, upload+dispatch,
         # result copy wait+unpack), the seconds of the stage01.* spans.
@@ -488,15 +504,14 @@ class Binarizer:
         stats = self.stream_stats = {"source_s": 0.0, "dispatch_s": 0.0,
                                      "drain_s": 0.0, "downscale_s": 0.0}
         # every batch in flight, plus the one being started, holds a buffer
-        copies = _HostCopies(self.device, self.pipeline_depth + 2)
+        copies = _HostCopies(self.device, PIPELINE_DEPTH + 2)
 
         def drain(entry):
             handle, batch, number = entry
             with span("stage01.drain", stats, "drain_s", number):
                 host = copies.wait(handle)
-                # unpacking (or the copy) leaves the pinned buffer free
-                host = (unpack_bits_host(host, model_size[0]) if use_packed
-                        else host.copy())
+                # unpacking leaves the pinned buffer free
+                host = unpack_bits_host(host, model_size[0])
                 copies.release(handle)
                 frames = []
                 for offset in range(batch.valid):
@@ -508,39 +523,28 @@ class Binarizer:
                     frames.append(img)
             return batch.times, batch.indices, frames
 
-        drainer = (_AsyncDrainer(drain, self.pipeline_depth)
-                   if self.async_drain else None)
-        if drainer is not None:
-            stats["drain_async"] = 1.0
+        # the drain thread only in a world of one process: the gather of
+        # every process's rows is a collective and must keep the
+        # processes' program order
+        drainer = _Drainer(drain, PIPELINE_DEPTH, process_count() == 1)
         try:
-            batches = self._batched(source, frames_limit)
+            batches = self._batches(source, frames_limit)
             for number in itertools.count():
                 with span("stage01.source", stats, "source_s", number):
                     batch = next(batches, None)
                 if batch is None:
                     break
-                if first is None:
-                    first = batch
+                if model_size is None:
                     h, w = batch.frames.shape[1:3]
                     full_size = (w, h)
                     model_size = resolve_model_size(w, h, self.max_model_pixels)
-                    device_halvings = 0
-                    if (self.downscale == "device" and use_packed and
-                            model_size != full_size):
+                    if self.downscale == "device" and model_size != full_size:
                         dw, dh = full_size
                         while dw * dh > self.max_model_pixels:
                             dw, dh = int(dw / 2), int(dh / 2)
                             device_halvings += 1
-                    # I420 needs even width and height % 4 at the UPLOAD size
-                    upload_size = full_size if device_halvings else model_size
-                    if self.upload_format == "yuv420" and \
-                            (upload_size[0] % 2 or upload_size[1] % 4):
-                        self.upload_format = "rgb"
-                    if use_packed and \
-                            self._packed_fn_key != (self.upload_format,
-                                                    device_halvings):
-                        self._make_packed(self.upload_format,
-                                          device_halvings)
+                    self.fit_upload(full_size if device_halvings
+                                    else model_size, device_halvings)
 
                 frames = batch.frames
                 if model_size != full_size and not device_halvings:
@@ -549,32 +553,12 @@ class Binarizer:
                         frames = _downscale_batch(frames, model_size,
                                                   self.downscale_filter)
 
-                if use_packed and self.upload_format == "yuv420":
-                    from ..models.fcn_lecturenet import rgb_to_yuv420_host
-
-                    with span("stage01.source", stats, "source_s", number):
-                        frames = rgb_to_yuv420_host(frames)
-
                 with span("stage01.dispatch", stats, "dispatch_s", number):
-                    result = self._run(self._packed_fns if use_packed else
-                                       self._binary_fns, frames)
-                    handle = copies.start(result)
-                if drainer is not None:
-                    for out in drainer.push((handle, batch, number)):
-                        yield out
-                else:
-                    pending.append((handle, batch, number))
-                    if len(pending) > self.pipeline_depth:
-                        yield drain(pending.pop(0))
-
-            if drainer is not None:
-                yield from drainer.finish()
-            else:
-                for entry in pending:
-                    yield drain(entry)
+                    handle = copies.start(self.dispatch(frames))
+                yield from drainer.push((handle, batch, number))
+            yield from drainer.finish()
         finally:
-            if drainer is not None:
-                drainer.close()
+            drainer.close()
 
     def process_source(self, source: VideoFrameSource, frames_limit: int = 0,
                        invert: bool = True):
@@ -595,40 +579,27 @@ class Binarizer:
             binaries.extend(frames)
         return frame_times, frame_indices, binaries
 
-    def _batched(self, source: VideoFrameSource, frames_limit: int):
-        batch_size = self.batch_size
-        if batch_size is None:
-            # peek the first frame to size batches by device memory
-            frame_iter = source.frames(frames_limit)
-            try:
-                first = next(frame_iter)
-            except StopIteration:
+    def _batches(self, source: VideoFrameSource, frames_limit: int):
+        """The source's frames in padded batches of ``batch_size``; without
+        one, the first frame sizes them by device memory."""
+        frames = source.frames(frames_limit)
+        if self.batch_size is None:
+            first = next(frames, None)
+            if first is None:
                 return
             h, w = first[2].shape[:2]
             mw, mh = resolve_model_size(w, h, self.max_model_pixels)
             # each device of the data axis takes a batch its memory holds
-            batch_size = default_batch_size(mw, mh, self.device) * (
-                1 if self.mesh is None else self.mesh.shape["data"])
-            print(f"Stage 01: batch size {batch_size} for {mw}x{mh} frames "
-                  f"on {self.device}"
+            data = 1 if self.mesh is None else self.mesh.shape["data"]
+            self.batch_size = default_batch_size(mw, mh, self.device) * data
+            print(f"Stage 01: batch size {self.batch_size} for {mw}x{mh} "
+                  f"frames on {self.device}"
                   + ("" if self.mesh is None else
-                     f", {self.mesh.shape['data']}-way data axis")
+                     f", {data}-way data axis")
                   + ("" if self.mesh is None or self.mesh.shape["model"] == 1
                      else f", {self.mesh.shape['model']}-way model axis"))
-            self.batch_size = batch_size
-
-            chained = itertools.chain([first], frame_iter)
-            buffer = []
-            for item in chained:
-                buffer.append(item)
-                if len(buffer) == batch_size:
-                    yield source._pack(buffer, batch_size, True)
-                    buffer = []
-            if buffer:
-                yield source._pack(buffer, batch_size, True)
-            return
-
-        yield from source.batches(batch_size, frames_limit)
+            frames = itertools.chain([first], frames)
+        yield from batched(frames, self.batch_size)
 
 
 def _downscale_batch(frames: np.ndarray, model_size: Tuple[int, int],

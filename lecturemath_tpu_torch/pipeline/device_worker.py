@@ -99,12 +99,12 @@ def _vmrss_mb() -> float:
 
 
 class _QueueSource(VideoFrameSource):
-    """Duck-typed frame source fed by the parent over a queue.
+    """Frame source fed by the parent over a queue.
 
     Yields (time, index, frame) items from ``("chunk", times, indices,
-    frames)`` messages until a ``None`` end-of-stream marker. Inherits
-    ``batches``/``_pack`` so Binarizer.stream_source batching (including
-    the auto-batch-size peek) behaves exactly as over a real video."""
+    frames)`` messages until a ``None`` end-of-stream marker; the
+    Binarizer batches them (including the auto-batch-size peek) exactly as
+    a real video's."""
 
     def __init__(self, feed_q):
         self._feed_q = feed_q
@@ -155,8 +155,6 @@ def _child_main(cfg_values: dict, device: Optional[str],
         binarizer = Binarizer.from_config(Config(dict(cfg_values)),
                                           allow_random=allow_random,
                                           device=device, **binarizer_kwargs)
-        if binarizer._packed_fn is None:
-            raise ValueError("WorkerBinarizer requires force_binary=True")
         result_q.put(("ready", _vmrss_mb(), time.time()))
         while True:
             msg = feed_q.get()

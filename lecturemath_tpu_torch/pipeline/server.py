@@ -12,18 +12,20 @@ model resident and jit-warm; the port keeps the same contract on the card:
     cv2 INTER_AREA) to ONE fixed model bucket, and each micro-batch is
     padded to a power-of-two batch bucket (1, 2, 4, ..., max_batch);
     outputs come back at the caller's own resolution (nearest);
-  * on the card each batch bucket is ONE CUDA graph, captured at warm-up:
-    from a static uint8 input it runs ``prepare_images``,
-    ``pad_to_multiple``, the bf16 channels_last forward with kernel K2 on
-    the four head convs, and kernel K1 into a static packed output. A
-    dispatch stages the frames in pinned memory, copies them in, replays
-    the graph, and fetches the packed bits (1 bit a pixel) through the
-    bounded ``Binarizer._fetch``; the host unpacks them. The buckets of one
-    model share one graph memory pool, captured largest first;
+  * on the card each batch bucket is ONE CUDA graph of
+    ``Binarizer.packed_fn``, captured at warm-up: from a static uint8 input
+    it runs ``prepare_images``, ``pad_to_multiple``, the bf16
+    channels_last forward with kernel K2 on the four head convs, and
+    kernel K1 into a static packed output. A dispatch stages the frames in
+    pinned memory, copies them in, replays the graph, and fetches the
+    packed bits (1 bit a pixel) through the bounded ``Binarizer.fetch``;
+    the host unpacks them. The buckets of one model share one graph memory
+    pool, captured largest first;
   * on the CPU (the caller asked for it) the same functions run eagerly,
     and ``graphs=False`` runs them eagerly on the card (to time the
-    difference). A failed capture raises at warm-up: the card never falls
-    back to eager launches unasked.
+    difference); either way ``Binarizer.dispatch`` makes the upload. A
+    failed capture raises at warm-up: the card never falls back to eager
+    launches unasked.
 
 Run via ``python -m lecturemath_tpu_torch.cli.serve <config> [-port N]``;
 programmatic use via BinarizeService. The HTTP contract:
@@ -57,7 +59,7 @@ import torch
 
 from .. import native
 from ..core.backend_probe import BackendUnavailable
-from ..models.fcn_lecturenet import rgb_to_yuv420_host, unpack_bits_host
+from ..models.fcn_lecturenet import unpack_bits_host
 from ..ops.conv7 import conv_same_nhwc
 from ..ops.postprocess import threshold_pack
 from ..utils.image import resize_area, resize_nearest
@@ -123,18 +125,16 @@ class _BucketGraph:
 
 
 class _Resident:
-    """A binarizer as the service dispatches it: ``use_packed`` as in the
-    JAX server and, on the card unless ``graphs`` is False, one CUDA graph
-    per batch bucket, the buckets sharing one memory pool. Dispatches run on
-    the resident's own stream."""
+    """A binarizer as the service dispatches it: on the card unless
+    ``graphs`` is False, one CUDA graph per batch bucket, the buckets
+    sharing one memory pool. Dispatches run on the resident's own
+    stream."""
 
-    def __init__(self, binarizer: Binarizer, use_packed: bool, graphs: bool,
+    def __init__(self, binarizer: Binarizer, graphs: bool,
                  capture_lock: threading.Lock):
         self.binarizer = binarizer
-        self.use_packed = use_packed
         device = binarizer.device
-        self.graphs_enabled = bool(graphs and use_packed
-                                   and device.type == "cuda")
+        self.graphs_enabled = bool(graphs and device.type == "cuda")
         self.graphs: Dict[int, _BucketGraph] = {}
         self.pool = (torch.cuda.graph_pool_handle() if self.graphs_enabled
                      else None)
@@ -157,7 +157,7 @@ class _Resident:
                 graph = self.graphs.get(bucket)
                 if graph is None:
                     t0 = time.perf_counter()
-                    graph = _BucketGraph(self.binarizer._packed_fn,
+                    graph = _BucketGraph(self.binarizer.packed_fn,
                                          input_shape, self.binarizer.device,
                                          self.pool)
                     self.capture_s += time.perf_counter() - t0
@@ -227,20 +227,10 @@ class BinarizeService:
             self._warm(self._active)
 
     def _prepare(self, binarizer: Binarizer) -> _Resident:
-        """Fix up a binarizer's upload format for this service's bucket and
-        wrap it for dispatch.
-
-        Packed device output: 1 bit/pixel off the device, host unpack.
-        yuv420 uploads are honored when the bucket satisfies I420's
-        geometry; otherwise rebuild the packed fn for plain RGB uploads."""
-        use_packed = binarizer._packed_fn is not None
-        if use_packed and binarizer.upload_format == "yuv420":
-            width, height = self.model_size
-            if width % 2 or height % 4:
-                binarizer.upload_format = "rgb"
-                binarizer._make_packed("rgb", 0)
-        return _Resident(binarizer, use_packed, self.use_graphs,
-                         self._capture_lock)
+        """Fit a binarizer's uploads to this service's bucket and wrap it
+        for dispatch."""
+        binarizer.fit_upload(self.model_size)
+        return _Resident(binarizer, self.use_graphs, self._capture_lock)
 
     def _input_shape(self, active: _Resident, bucket: int) -> Tuple[int, ...]:
         width, height = self.model_size
@@ -401,22 +391,18 @@ class BinarizeService:
 
     def _dispatch(self, frames: np.ndarray, active=None) -> np.ndarray:
         """One device dispatch: uint8 RGB [B, H, W, 3] -> binary
-        [B, H, W] ink=0/bg=255, via the bit-packed download when
-        available. ``active`` pins a resident (reload warms the incoming
-        one while the worker serves the current)."""
+        [B, H, W] ink=0/bg=255, via the bit-packed download. ``active``
+        pins a resident (reload warms the incoming one while the worker
+        serves the current)."""
         active = active if active is not None else self._active
         binarizer = active.binarizer
-        if not active.use_packed:
-            return binarizer.binarize_frames(frames)
-        if binarizer.upload_format == "yuv420":
-            frames = rgb_to_yuv420_host(frames)
         with active.stream_context():
             if active.graphs_enabled:
-                graph = active.graph(frames.shape)
-                packed = graph.run(frames)
+                graph = active.graph(self._input_shape(active, len(frames)))
+                packed = binarizer.dispatch(frames, graph.run)
             else:
-                packed = binarizer._packed_fn(binarizer._to_device(frames))
-            host = binarizer._fetch(packed)
+                packed = binarizer.dispatch(frames)
+            host = binarizer.fetch(packed)
         if active.graphs_enabled:
             with self._stats_lock:
                 self._stats["graph_replays"] += 1

@@ -14,7 +14,7 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import dataclass
-from typing import Iterator, List, Optional, Sequence, Tuple
+from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -206,26 +206,34 @@ class VideoFrameSource:
 
     def batches(self, batch_size: int, frames_limit: int = 0,
                 pad_last: bool = True) -> Iterator[FrameBatch]:
-        buffer: List[Tuple[float, int, np.ndarray]] = []
-        for item in self.frames(frames_limit):
-            buffer.append(item)
-            if len(buffer) == batch_size:
-                yield self._pack(buffer, batch_size, pad_last)
-                buffer = []
-        if buffer:
-            yield self._pack(buffer, batch_size, pad_last)
+        return batched(self.frames(frames_limit), batch_size, pad_last)
 
-    @staticmethod
-    def _pack(buffer, batch_size: int, pad_last: bool) -> FrameBatch:
-        valid = len(buffer)
-        frames = np.stack([f for _, _, f in buffer])
-        if pad_last and valid < batch_size:
-            pad = np.repeat(frames[-1:], batch_size - valid, axis=0)
-            frames = np.concatenate([frames, pad])
-        return FrameBatch(frames=frames,
-                          times=[t for t, _, _ in buffer],
-                          indices=[i for _, i, _ in buffer],
-                          valid=valid)
+
+def batched(frames: Iterable[Tuple[float, int, np.ndarray]], batch_size: int,
+            pad_last: bool = True) -> Iterator[FrameBatch]:
+    """(time, index, frame) items -> FrameBatches of ``batch_size`` frames;
+    with ``pad_last`` the last batch is filled up with copies of its last
+    frame (``valid`` counts the real ones)."""
+    buffer: List[Tuple[float, int, np.ndarray]] = []
+    for item in frames:
+        buffer.append(item)
+        if len(buffer) == batch_size:
+            yield _pack(buffer, batch_size, pad_last)
+            buffer = []
+    if buffer:
+        yield _pack(buffer, batch_size, pad_last)
+
+
+def _pack(buffer, batch_size: int, pad_last: bool) -> FrameBatch:
+    valid = len(buffer)
+    frames = np.stack([f for _, _, f in buffer])
+    if pad_last and valid < batch_size:
+        pad = np.repeat(frames[-1:], batch_size - valid, axis=0)
+        frames = np.concatenate([frames, pad])
+    return FrameBatch(frames=frames,
+                      times=[t for t, _, _ in buffer],
+                      indices=[i for _, i, _ in buffer],
+                      valid=valid)
 
 
 class ImageListSource(VideoFrameSource):

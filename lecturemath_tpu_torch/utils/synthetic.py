@@ -207,7 +207,7 @@ class SyntheticRGBLectureSource:
     piecewise-constant between glyph write/erase events, so renders are
     cached per content segment and the per-frame cost is a uint8 copy.
 
-    Duck-types VideoFrameSource (frames/batches/_pack) like ArraySource.
+    A frame source: ``frames`` is all that stage 01 reads of it.
     """
 
     forced_resolution = None
@@ -273,19 +273,6 @@ class SyntheticRGBLectureSource:
             n = min(n, frames_limit)
         for t in range(n):
             yield (t / self.fps) * 1000.0, t, self.rgb_frame(t)
-
-    def batches(self, batch_size: int, frames_limit: int = 0,
-                pad_last: bool = True):
-        from ..pipeline.video import VideoFrameSource
-
-        return VideoFrameSource.batches(self, batch_size, frames_limit,
-                                        pad_last)
-
-    @staticmethod
-    def _pack(buffer, batch_size: int, pad_last: bool):
-        from ..pipeline.video import VideoFrameSource
-
-        return VideoFrameSource._pack(buffer, batch_size, pad_last)
 
 
 def synthetic_rgb_lecture(seed: int = 0, n_frames: int = 8, height: int = 96,

@@ -96,14 +96,14 @@ def test_binarizer_fetch_is_bounded(monkeypatch):
                           upload_format="rgb")
     tensor = torch.arange(4, dtype=torch.uint8).reshape(2, 2)
     # healthy path first
-    np.testing.assert_array_equal(binarizer._fetch(tensor), tensor.numpy())
+    np.testing.assert_array_equal(binarizer.fetch(tensor), tensor.numpy())
 
     monkeypatch.setattr(port_binarize, "_wait_host_copy",
                         lambda host, done: time.sleep(30))
     monkeypatch.setenv("LM_FETCH_TIMEOUT_S", "0.3")
     start = time.time()
     with pytest.raises(BackendUnavailable, match="fetch hung"):
-        binarizer._fetch(tensor)
+        binarizer.fetch(tensor)
     assert time.time() - start < 5
 
     def boom(host, done):
@@ -112,8 +112,8 @@ def test_binarizer_fetch_is_bounded(monkeypatch):
     monkeypatch.setenv("LM_FETCH_TIMEOUT_S", "5")
     monkeypatch.setattr(port_binarize, "_wait_host_copy", boom)
     with pytest.raises(RuntimeError, match="transport dead"):
-        binarizer._fetch(tensor)
+        binarizer.fetch(tensor)
     # <= 0 disables the deadline: the wait runs on the caller's thread
     monkeypatch.setenv("LM_FETCH_TIMEOUT_S", "0")
     with pytest.raises(RuntimeError, match="transport dead"):
-        binarizer._fetch(tensor)
+        binarizer.fetch(tensor)

@@ -15,6 +15,7 @@ from lecturemath_tpu.utils.synthetic import (synthetic_rgb_lecture,
                                              threshold_binarizer_variables)
 from lecturemath_tpu_torch.models import fcn_lecturenet as tfcn
 from lecturemath_tpu_torch.models.convert import state_dict_from_flax
+from lecturemath_tpu_torch.pipeline import binarize as port_binarize
 from lecturemath_tpu_torch.pipeline.binarize import Binarizer, default_batch_size
 from lecturemath_tpu_torch.pipeline.video import ArraySource
 
@@ -54,13 +55,16 @@ def _port_model(state_dict):
     ("rgb", "device", 5_000, True),      # box halving on the device
 ])
 def test_process_source_matches_jax(lecture, weights, upload_format,
-                                    downscale, max_pixels, async_drain):
+                                    downscale, max_pixels, async_drain,
+                                    monkeypatch):
     cfg, variables, state_dict = weights
     kwargs = dict(batch_size=BATCH, upload_format=upload_format,
-                  downscale=downscale, max_model_pixels=max_pixels,
-                  async_drain=async_drain)
+                  downscale=downscale, max_model_pixels=max_pixels)
     jax_bin = JaxBinarizer(jfcn.FCNLectureNet(cfg, dtype=jnp.float32),
-                           variables, **kwargs)
+                           variables, async_drain=async_drain, **kwargs)
+    if not async_drain:
+        # the port drains inline in a world of more than one process
+        monkeypatch.setattr(port_binarize, "process_count", lambda: 2)
     port_bin = Binarizer(_port_model(state_dict), device="cpu", **kwargs)
     assert port_bin.upload_format == jax_bin.upload_format == upload_format
 
@@ -133,3 +137,34 @@ def test_binarizer_model_axis_on_cpu_shards(weights):
         meshed.binarize_frames(rgb),
         Binarizer(_port_model(state_dict), device="cpu",
                   batch_size=BATCH).binarize_frames(rgb))
+
+
+class _FramesOnly:
+    """A frame source that defines ``frames`` and nothing else."""
+
+    def __init__(self, array):
+        self.array = array
+
+    def frames(self, frames_limit: int = 0):
+        n = min(len(self.array), frames_limit or len(self.array))
+        for t in range(n):
+            yield t * 1000.0, t, self.array[t]
+
+
+@pytest.mark.parametrize("batch_size", [None, BATCH])
+def test_a_source_with_only_frames_streams(lecture, weights, batch_size):
+    """Stage 01 reads nothing of a source but ``frames``: with the batch
+    sized from the first frame and with a fixed one, the stream equals
+    ArraySource's, limit and padded last batch included."""
+    _, _, state_dict = weights
+    ours = Binarizer(_port_model(state_dict), device="cpu",
+                     batch_size=batch_size)
+    theirs = Binarizer(_port_model(state_dict), device="cpu",
+                       batch_size=BATCH)
+    for limit in (0, 5):
+        got = ours.process_source(_FramesOnly(lecture), limit)
+        want = theirs.process_source(ArraySource(lecture, fps=1.0), limit)
+        assert got[0] == want[0] and got[1] == want[1]
+        assert len(got[2]) == (limit or N_FRAMES)
+        for a, b in zip(got[2], want[2]):
+            np.testing.assert_array_equal(a, b)

@@ -535,7 +535,7 @@ def test_serving_graph_equals_eager_for_every_bucket(cuda):
                                       "conv_same_nhwc": 4}
             with active.stream_context():
                 ours = graph.run(frames[:bucket]).clone()
-            eager = active.binarizer._packed_fn(
+            eager = active.binarizer.packed_fn(
                 torch.from_numpy(frames[:bucket]).to(cuda))
             torch.cuda.synchronize()
             assert torch.equal(ours, eager), bucket
@@ -559,7 +559,7 @@ def test_serving_round_trip_on_the_card(cuda):
 
     def direct(frame):
         resized = resize_area(frame, (96, 64))
-        bits = binarizer._packed_fn(torch.from_numpy(resized[None]).to(cuda))
+        bits = binarizer.packed_fn(torch.from_numpy(resized[None]).to(cuda))
         binary = unpack_bits_host(bits.cpu().numpy(), 96)[0]
         return resize_nearest(binary, (frame.shape[1], frame.shape[0]))
 
@@ -617,7 +617,7 @@ def test_backend_probe_and_bounded_fetch_on_the_card(cuda):
     ensure_backend(timeout_s=60)
     binarizer = _serving_binarizer(cuda)
     tensor = torch.arange(12, dtype=torch.uint8, device=cuda).reshape(3, 4)
-    np.testing.assert_array_equal(binarizer._fetch(tensor),
+    np.testing.assert_array_equal(binarizer.fetch(tensor),
                                   np.arange(12, dtype=np.uint8).reshape(3, 4))
 
 

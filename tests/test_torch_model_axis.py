@@ -43,6 +43,7 @@ from lecturemath_tpu_torch.parallel.inference import ShardedBinarizer
 from lecturemath_tpu_torch.parallel.model_axis import (
     forward_channel_sharded, forward_height_sharded, packed_height_sharded,
     slab_rows)
+from lecturemath_tpu_torch.pipeline import binarize as port_binarize
 from lecturemath_tpu_torch.pipeline.binarize import Binarizer
 from lecturemath_tpu_torch.pipeline.video import ArraySource
 from lecturemath_tpu_torch.utils.synthetic import synthetic_rgb_lecture
@@ -330,18 +331,22 @@ def test_model_axis_without_a_flag_replicates():
 # ------------------------------------------------------------- stage 01
 
 @pytest.mark.parametrize("async_drain", [True, False])
-def test_binarizer_on_a_2x2_mesh_streams_the_meshless_frames(async_drain):
+def test_binarizer_on_a_2x2_mesh_streams_the_meshless_frames(async_drain,
+                                                            monkeypatch):
     """11 frames in batches of 4: BN folded, then channel-sharded over each
     data position's 2 devices; the batch rounds to the data axis only."""
     model = _model(MIXED)
     frames = _frames(n=11)
-    kwargs = dict(upload_format="rgb", async_drain=async_drain)
+    kwargs = dict(upload_format="rgb")
+    if not async_drain:
+        # the stream drains inline in a world of more than one process
+        monkeypatch.setattr(port_binarize, "process_count", lambda: 2)
     meshed = Binarizer(_copy(model), batch_size=3, mesh=_mesh(2, 2),
                        **kwargs)
     assert meshed.batch_size == 4 and len(meshed._replicas) == 4
     assert meshed._replicas[3].model_index == 1
     assert meshed._replicas[0].fold_bn
-    assert len(meshed._packed_fns) == 2     # one a data position
+    assert len(meshed.packed_fns) == 2     # one a data position
     meshless = Binarizer(_copy(model), batch_size=4, device="cpu", **kwargs)
     ours = meshed.process_source(ArraySource(frames, fps=1.0))
     plain = meshless.process_source(ArraySource(frames, fps=1.0))

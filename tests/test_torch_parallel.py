@@ -25,6 +25,7 @@ from lecturemath_tpu_torch.models import fcn_lecturenet as tfcn
 from lecturemath_tpu_torch.models.convert import state_dict_from_flax
 from lecturemath_tpu_torch.parallel import mesh as tmesh
 from lecturemath_tpu_torch.parallel.inference import ShardedBinarizer
+from lecturemath_tpu_torch.pipeline import binarize as port_binarize
 from lecturemath_tpu_torch.pipeline.binarize import Binarizer
 from lecturemath_tpu_torch.pipeline.video import ArraySource
 from lecturemath_tpu_torch.utils.synthetic import synthetic_rgb_lecture
@@ -128,19 +129,23 @@ def ragged():
 
 @pytest.mark.parametrize("async_drain", [True, False])
 def test_binarizer_on_four_cpu_replicas(ragged, threshold_weights,
-                                        async_drain):
+                                        async_drain, monkeypatch):
     """11 frames in batches of 4 (the last holds 3): the 4x1 mesh's stream
     equals the meshless port's and the JAX Binarizer's on a 4x1 mesh."""
     cfg, variables, state_dict = threshold_weights
     mesh = tmesh.make_mesh(tmesh.MeshSpec(4, 1), [CPU] * 4)
-    kwargs = dict(batch_size=3, upload_format="rgb", async_drain=async_drain)
+    kwargs = dict(batch_size=3, upload_format="rgb")
+    if not async_drain:
+        # the port drains inline in a world of more than one process
+        monkeypatch.setattr(port_binarize, "process_count", lambda: 2)
     sharded = Binarizer(_port_model(state_dict), mesh=mesh, **kwargs)
     assert sharded.batch_size == 4 and len(sharded._replicas) == 4
     meshless = Binarizer(_port_model(state_dict), device="cpu",
                          **dict(kwargs, batch_size=4))
     jax_bin = JaxBinarizer(jfcn.FCNLectureNet(cfg, dtype=jnp.float32),
                            variables, mesh=jmesh.make_mesh(
-                               jmesh.MeshSpec(4, 1)), **kwargs)
+                               jmesh.MeshSpec(4, 1)),
+                           async_drain=async_drain, **kwargs)
     ours = sharded.process_source(ArraySource(ragged, fps=1.0))
     plain = meshless.process_source(ArraySource(ragged, fps=1.0))
     theirs = jax_bin.process_source(JaxArraySource(ragged, fps=1.0))

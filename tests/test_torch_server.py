@@ -368,7 +368,7 @@ def test_backend_death_latches_unhealthy_until_recovery():
 
 
 def test_backend_death_from_the_bounded_fetch(monkeypatch):
-    """The latch's real trigger: Binarizer._fetch's deadline."""
+    """The latch's real trigger: Binarizer.fetch's deadline."""
     from lecturemath_tpu_torch.pipeline import binarize as port_binarize
 
     service = BinarizeService(_binarizer(), model_size=(64, 48), max_batch=1,

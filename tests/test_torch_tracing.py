@@ -21,6 +21,7 @@ from lecturemath_tpu_torch.core import timing
 from lecturemath_tpu_torch.core.config import Config
 from lecturemath_tpu_torch.core.metadata import LectureInfo
 from lecturemath_tpu_torch.models import fcn_lecturenet as tfcn
+from lecturemath_tpu_torch.pipeline import binarize
 from lecturemath_tpu_torch.pipeline.binarize import Binarizer
 from lecturemath_tpu_torch.pipeline.driver import PipelineDriver
 from lecturemath_tpu_torch.pipeline.express import run_lecture
@@ -118,19 +119,21 @@ def stream_workspace(tmp_path_factory):
 
 @pytest.mark.parametrize("async_drain", [False, True], ids=["sync", "async"])
 def test_stream_stats_are_the_stage01_spans_seconds(stream_workspace,
-                                                    async_drain):
+                                                    async_drain,
+                                                    monkeypatch):
     """Untraced, the stream records nothing and stream_stats keeps its
     keys; traced, each key is its spans' seconds (the recorded span holds
     the timed block), the outputs alike."""
     root, config = stream_workspace
     source = lambda: VideoFrameSource([str(root / "videos" / "synth01.avi")],
                                       sampling_fps=1.0)
-    binarizer = Binarizer.from_config(config, batch_size=4, device="cpu",
-                                      async_drain=async_drain)
+    if not async_drain:
+        # the stream drains inline in a world of more than one process
+        monkeypatch.setattr(binarize, "process_count", lambda: 2)
+    binarizer = Binarizer.from_config(config, batch_size=4, device="cpu")
     plain = _collect(binarizer, source())
     stats = dict(binarizer.stream_stats)
-    assert set(stats) == STREAM_KEYS | ({"drain_async"} if async_drain
-                                        else set())
+    assert set(stats) == STREAM_KEYS
     assert min(stats[key] for key in STREAM_SPANS) > 0.0
     assert stats["downscale_s"] == 0.0
     assert timing.take_spans() == ([], 0)
@@ -158,8 +161,7 @@ def test_spans_are_recorded_on_every_thread_with_their_parents(
     thread started before the profile: each span under its thread's native
     id, a nested span under its parent."""
     root, config = stream_workspace
-    binarizer = Binarizer.from_config(config, batch_size=4, device="cpu",
-                                      async_drain=True)
+    binarizer = Binarizer.from_config(config, batch_size=4, device="cpu")
     go, early_done = threading.Event(), []
 
     def early():
@@ -260,16 +262,15 @@ def test_spans_share_the_exported_traces_clock(tmp_path):
     assert event["tid"] == marker["tid"]
 
 
-def _tiny_binarizer(async_drain):
+def _tiny_binarizer():
     net = tfcn.FCNConfig(**TINY)
     model = tfcn.FCNLectureNet(net)
     model.load_state_dict(threshold_binarizer_variables(net, seed=1))
-    return Binarizer(model, batch_size=4, device="cpu", dtype=torch.float32,
-                     async_drain=async_drain)
+    return Binarizer(model, batch_size=4, device="cpu", dtype=torch.float32)
 
 
 @pytest.mark.parametrize("async_drain", [False, True], ids=["sync", "async"])
-def test_express_lecture_spans(async_drain):
+def test_express_lecture_spans(async_drain, monkeypatch):
     """Ten frames in batches of 4, 4 and 2: an extract and a match a frame
     under the batch's track, a drain (and, async, a wait) a batch, each of
     stages 03-05 once under the lecture."""
@@ -277,9 +278,12 @@ def test_express_lecture_spans(async_drain):
                                    width=128, n_boards=2,
                                    glyphs_per_board=5)[0]
     driver = PipelineDriver(Config(dict(EXPRESS_KEYS)), {}, None, None)
+    if not async_drain:
+        # the stream drains inline in a world of more than one process
+        monkeypatch.setattr(binarize, "process_count", lambda: 2)
     with traced():
         run_lecture(driver, LectureInfo(id="t", title="t"),
-                    _tiny_binarizer(async_drain), source=ArraySource(frames),
+                    _tiny_binarizer(), source=ArraySource(frames),
                     export=False)
     records = taken()
     seq = {r.seq: r for r in records}
