@@ -41,8 +41,15 @@ then, in phases:
      kernel K4 (median) at the reconstruction phase's batch [8, 256, 256, 3]
      and k = 35 against native.median_u8, byte for byte, on random bytes
      and on board crops: its device time beside its bytes bound, the plain
-     version's time on the host, and the host's wall of the training data's
-     route (pinned upload, K4 and the copy back on a side stream);
+     version's time on the host, and its float32 output (the training
+     data's median targets) against the plain version's; then kernel K5
+     (augment) at the binarizer phase's batch [8, 256, 256, 3] with its
+     ground truth (text mask at e = 15, weights at w = 1) and every mix of
+     inversion, hue and noise against its plain version, byte for byte: its
+     device time beside its bytes bound, the plain version's time on the
+     host, and the host's wall of a batch on the card's route and on the
+     host's (the pixel work after the draws) with the card's share of the
+     samples;
   6. the staged path at the same widths with CC_ANALYSIS_DEVICE_LABELING = 1:
      stage01_binarize through the driver (frames from memory), then the
      cc_analysis, cc_grouping, vid_segmentation and generate_summary CLIs on
@@ -632,6 +639,8 @@ def make_workspace():
 
 # the kernels express launches; it labels on the host, so K3 is not one
 EXPRESS_KERNELS = ("threshold_pack", "conv_same_nhwc")
+# the training data's kernels (K4, K5): on the training paths only
+TRAINING_KERNELS = ("median", "augment")
 
 
 def make_source():
@@ -1089,8 +1098,8 @@ def phase_k4():
     import torch
 
     from lecturemath_tpu_torch.ops.median import (median_u8_batch,
-                                                  median_u8_pinned,
-                                                  median_u8_plain)
+                                                  median_u8_plain,
+                                                  median_unit_batch)
     from lecturemath_tpu_torch.utils.synthetic import synthetic_rgb_lecture
 
     shape, k = (8, 256, 256, 3), 35
@@ -1107,18 +1116,17 @@ def phase_k4():
         plain = median_u8_plain(torch.from_numpy(host), k)
         plain_ms = (time.perf_counter() - t0) * 1e3
         differ = int((got != plain).sum())
+        unit = median_unit_batch(dev, k).cpu().numpy()
+        want = plain.numpy().astype(np.float32) / 127.5 - 1.0
+        differ += int((unit.view(np.uint32) != want.view(np.uint32)).sum())
         ms_by_input[name] = cuda_ms(lambda: median_u8_batch(dev, k), 50, 3)
-        crops = list(host)
-        median_u8_pinned(crops, k)
-        t0 = time.perf_counter()
-        for _ in range(20):
-            median_u8_pinned(crops, k)
-        route_ms = (time.perf_counter() - t0) * 1e3 / 20
-        log(f"K4 {name} {list(shape)} k={k}: {differ} bytes differ from "
-            f"native.median_u8; kernel {ms_by_input[name] * 1e3:.1f} us a "
-            f"launch, plain (native.median_u8 on the host, a crop at a time) "
-            f"{plain_ms:.1f} ms, the training data's route (pinned upload, "
-            f"K4, copy back, side stream) {route_ms:.3f} ms of host wall")
+        unit_ms = cuda_ms(lambda: median_unit_batch(dev, k), 50, 3)
+        log(f"K4 {name} {list(shape)} k={k}: {differ} values differ from "
+            f"native.median_u8 (uint8 and float32 outputs); kernel "
+            f"{ms_by_input[name] * 1e3:.1f} us a launch, "
+            f"{unit_ms * 1e3:.1f} us with the float32 output, plain "
+            f"(native.median_u8 on the host, a crop at a time) "
+            f"{plain_ms:.1f} ms")
         if differ:
             raise AssertionError(f"K4 disagrees on {name}")
     ms = ms_by_input["boards"]
@@ -1132,6 +1140,142 @@ def phase_k4():
             "replaces": None, "max_abs_err": 0, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bytes_ms, "bound_by": "bytes",
             "library_ms": None, "ms_by_input": ms_by_input}
+
+
+# K5's batch: the binarizer phase's recipe (train-bin-b8)
+K5_RECIPE = dict(crop_size=(256, 256), crop_min_fg_prc=0.1, flip_chance=0.5,
+                 color_invert_chance=0.5, color_change_chance=0.1,
+                 gaussian_noise_chance=0.2, gaussian_noise_level=5.0,
+                 text_mask_expansion=15, weight_expansion=1)
+
+
+def phase_k5():
+    """K5 against its plain version at the binarizer phase's batch with
+    every mix of inversion, hue and noise, its time beside its bytes bound,
+    and the host's wall of a batch's pixels on each route; returns its
+    kernel record."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lecturemath_tpu_torch.ops.augment import augment_batch
+    from lecturemath_tpu_torch.train import dataset as dataset_module
+    from lecturemath_tpu_torch.utils.png import encode_png
+    from lecturemath_tpu_torch.utils.synthetic import synthetic_rgb_lecture
+
+    batch, height, width = 8, 256, 256
+    rng = np.random.default_rng(25)
+    boards, ink, _, _ = synthetic_rgb_lecture(seed=25, n_frames=batch,
+                                              height=height, width=width)
+    images = torch.from_numpy(np.ascontiguousarray(boards))
+    truths = torch.from_numpy(np.ascontiguousarray(255 - ink))
+    params = [(k >> 2 & 1, k >> 1 & 1, int(rng.integers(-81, 81)), 0)
+              for k in range(batch)]
+    rows = 0
+    for k, (invert, hue, shift, _) in enumerate(params):
+        params[k] = (invert, hue, shift, rows if k & 1 else -1)
+        rows += k & 1
+    params = torch.tensor(params, dtype=torch.int32)
+    noise = torch.from_numpy(rng.standard_normal((rows, height, width, 3)))
+    options = dict(target=True, text_mask_expansion=15, weight_expansion=1,
+                   weight_fg_extra=1.0)
+    t0 = time.perf_counter()
+    plain = augment_batch(images, params, noise, 5.0, truths, **options)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    dev = [t.cuda() for t in (images, params, noise)]
+    dev_truths = truths.cuda()
+    before = augment_batch.launches
+    ours = augment_batch(*dev, 5.0, dev_truths, **options)
+    torch.cuda.synchronize()
+    launched = augment_batch.launches - before
+    differ = sum(int((ours[key].cpu().numpy().view(np.uint32)
+                      != value.numpy().view(np.uint32)).sum())
+                 for key, value in plain.items())
+    if differ or launched != 1:
+        raise AssertionError("K5 disagrees with its plain version")
+    # CUDA events around back-to-back calls time the wrapper's host work
+    # (checks, output allocations, the ctypes call) where that is longer
+    # than the kernel; the profiler's spans time the kernel itself
+    call_ms = cuda_ms(
+        lambda: augment_batch(*dev, 5.0, dev_truths, **options), 100, 5)
+    kernel_ms = {}
+    for name, truth, cases in (("binarizer", dev_truths, options),
+                               ("reconstruction", None,
+                                dict(keep_crops=True))):
+        _, spans = profiled_spans(lambda: [augment_batch(
+            *dev, 5.0, truth, **cases) for _ in range(50)])
+        launches = [end - start for start, end, cat, kernel in spans
+                    if cat == "kernel" and "augment_kernel" in kernel]
+        kernel_ms[name] = (sum(launches) / len(launches) / 1e3 if launches
+                           else None)
+    ms = kernel_ms["binarizer"]
+    n_bytes = (images.numel() + truths.numel() + params.numel() * 4
+               + noise.numel() * 8
+               + 4 * sum(value.numel() for value in plain.values()))
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    timed = ("not measured (the profiler saw no kernel)" if ms is None else
+             f"{ms * 1e3:.1f} us a launch, bound {bytes_ms * 1e3:.2f} us "
+             f"(bytes {n_bytes}) = {bytes_ms / ms:.4f} of it")
+    log(f"K5 {[batch, height, width, 3]} with ground truth, every mix of "
+        f"inversion, hue and noise ({rows} noisy): {differ} values differ "
+        f"from the plain version, {launched} launch; kernel {timed}; "
+        f"without ground truth, crops kept (the reconstruction phase) "
+        f"{kernel_ms['reconstruction']} ms; a call back to back "
+        f"{call_ms * 1e3:.1f} us (the wrapper's host work); plain "
+        f"(train/augment.py on the host, a sample at a time) "
+        f"{plain_ms:.1f} ms")
+
+    # the host's wall of a batch's pixels after its draws, on each route
+    directory = tempfile.mkdtemp(prefix="k5_frames_")
+    try:
+        frames, frame_ink, _, _ = synthetic_rgb_lecture(
+            seed=26, n_frames=16, height=540, width=960)
+        pairs = ([], [])
+        for k in range(len(frames)):
+            for paths, array, name in ((pairs[0], frames[k][:, :, ::-1], ""),
+                                       (pairs[1], 255 - frame_ink[k],
+                                        "_gt")):
+                paths.append(os.path.join(directory, f"{k}{name}.png"))
+                with open(paths[-1], "wb") as f:
+                    f.write(encode_png(np.ascontiguousarray(array)))
+        dataset = dataset_module.LectureNetDataset(*pairs, seed=3,
+                                                   **K5_RECIPE)
+        dataset.preload()
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    walls, counts = {}, {}
+    original = dataset_module.median_route
+    try:
+        for route in ("cuda", "native"):
+            dataset_module.median_route = (lambda route=route: route)
+            plans = [dataset._plan(k) for k in range(batch)]
+            dataset._make(plans)
+            torch.cuda.synchronize()
+            dataset.data_stats.update(pixels_card=0, pixels_host=0)
+            t0 = time.perf_counter()
+            for _ in range(20):
+                dataset._make(plans)
+            walls[route] = (time.perf_counter() - t0) * 1e3 / 20
+            torch.cuda.synchronize()
+            counts[route] = (dataset.data_stats["pixels_card"],
+                             dataset.data_stats["pixels_host"])
+    finally:
+        dataset_module.median_route = original
+    card, host = counts["cuda"]
+    log(f"K5 route: a batch's pixels after its draws take {walls['cuda']:.3f}"
+        f" ms of host wall on the card's route (staging, one upload, K5) and "
+        f"{walls['native']:.3f} ms on the host's (the plain version); on the "
+        f"card's route {card} of {card + host} samples' pixels on the card "
+        f"({card / (card + host):.2f})")
+    if card != 20 * batch:
+        raise AssertionError(f"K5's route made {host} samples on the host")
+    return {"name": "augment", "route": "cuda",
+            "source": "lecturemath_tpu_torch/csrc/augment.cu",
+            "replaces": None, "max_abs_err": 0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bytes_ms, "bound_by": "bytes",
+            "library_ms": None, "call_ms": call_ms,
+            "kernel_ms_by_phase": kernel_ms, "route_host_ms": walls}
 
 
 def same_tracker(ours, theirs):
@@ -1230,9 +1374,10 @@ def phase_staged(counters, express_indices):
         raise AssertionError(f"staged summary indices {list(indices)} differ "
                              f"from express {express_indices}")
 
-    # check 3: every kernel of the path ran
+    # check 3: every kernel of the path ran (the training data's are not on
+    # it)
     for name, count in launches.items():
-        if count <= 0:
+        if count <= 0 and name not in TRAINING_KERNELS:
             raise AssertionError(f"kernel {name} was not launched")
 
     stage02_profile(conf)
@@ -2136,12 +2281,23 @@ def training_curriculum(conf):
     return path
 
 
+def host_copy(batch):
+    """A dataset batch as numpy arrays: the card's route yields tensors on
+    the card (K5)."""
+    import torch
+
+    return {key: value.cpu().numpy() if isinstance(value, torch.Tensor)
+            else value for key, value in batch.items()}
+
+
 def training_data(conf):
-    """The host's ms a batch of each phase's data path (PNG decode, the
-    augmentations, median targets and masks, as the prefetch thread runs
-    them, from preloaded PNGs); returns one host batch of the text-detector
-    phase (every head has a target: text mask, eroded text region and
-    median reconstruction)."""
+    """The ms a batch of each phase's data path (PNG decode, the draws on
+    the host, then the batch's pixels in K5 and its median targets in K4,
+    as the prefetch thread runs them, from preloaded PNGs); returns one
+    host copy of a batch of the text-detector phase (every head has a
+    target: text mask, eroded text region and median reconstruction)."""
+    import torch
+
     from lecturemath_tpu_torch.core.config import Config
     from lecturemath_tpu_torch.train.dataset import (LectureNetDataset,
                                                      find_image_mask_pairs)
@@ -2169,10 +2325,11 @@ def training_data(conf):
         t0 = time.perf_counter()
         batches = [batch for _ in range(2)
                    for batch in dataset.batches(TRAIN_BATCH)]
+        torch.cuda.synchronize()
         rates[name] = (time.perf_counter() - t0) * 1e3 / len(batches)
         if name == "text_detector":
-            host_batch = batches[0]
-    log(f"host data path, ms a batch of {TRAIN_BATCH} on one thread "
+            host_batch = host_copy(batches[0])
+    log(f"data path, ms a batch of {TRAIN_BATCH} on one thread "
         f"(img/s): " + json.dumps({name: [round(ms, 1), round(
             TRAIN_BATCH / ms * 1e3, 1)] for name, ms in rates.items()}))
     return host_batch
@@ -4955,7 +5112,7 @@ def phase_flagship(counters, card):
                              f"(every step runs in a child): {here}")
 
     launches = {name: sum(rec["launches"][name] for rec in records.values())
-                for name in counters}
+                for name in counters if name not in TRAINING_KERNELS}
     for label, kernels in FLAGSHIP_KERNELS.items():
         counts = records[label]["launches"]
         missing = [name for name in kernels if counts.get(name, 0) <= 0]
@@ -5571,7 +5728,9 @@ def axis_train_batches(conf, phase, n):
     dataset.preload()
     out = []
     while len(out) < n:
-        out.extend(dataset.batches(TRAIN_BATCH))
+        # host copies: the card's route yields tensors on the card (K5)
+        out.extend(host_copy(batch)
+                   for batch in dataset.batches(TRAIN_BATCH))
     return out[:n]
 
 
@@ -5916,15 +6075,17 @@ def phase_model_axis_training(counters, card):
         counter.launches = 0
     numbers = {"parity_fp32": axis_train_parity(conf, net_config)}
     trained, numbers["bf16"] = axis_train_bf16(conf, net_config, card)
-    # the data path's median targets go through K4; no model kernel may
+    # the data path's pixels go through K5 and its median targets through
+    # K4; no model kernel may
     training_launches = counted(counters)
     if any(count for name, count in training_launches.items()
-           if name != "median"):
+           if name not in TRAINING_KERNELS):
         raise AssertionError(f"model-axis training launched kernels "
                              f"{training_launches}: K2 under grad")
     log(f"model-axis training (a), (b): no model kernel launched (the heads "
         f"run F.conv2d under grad); K4 {training_launches['median']} for "
-        f"the median targets")
+        f"the median targets, K5 {training_launches['augment']} for the "
+        f"batches' pixels")
     launches, numbers["trained_check"] = axis_trained_check(
         trained, net_config, counters, card)
     del trained
@@ -5962,6 +6123,7 @@ def main():
     from lecturemath_tpu_torch.ops import cuda_build
     from lecturemath_tpu_torch.ops.cc_label import label_components_batch
     from lecturemath_tpu_torch.ops.conv7 import conv_same_nhwc
+    from lecturemath_tpu_torch.ops.augment import augment_batch
     from lecturemath_tpu_torch.ops.median import median_u8_batch
     from lecturemath_tpu_torch.ops.postprocess import threshold_pack
     from lecturemath_tpu_torch.pipeline.binarize import default_batch_size
@@ -5998,7 +6160,8 @@ def main():
     counters = {"threshold_pack": threshold_pack,
                 "conv_same_nhwc": conv_same_nhwc,
                 "cc_label": label_components_batch,
-                "median": median_u8_batch}
+                "median": median_u8_batch,
+                "augment": augment_batch}
     walls = {"1 environment and build": time.perf_counter() - t_start}
     log(f"phase 1 environment and build: "
         f"{walls['1 environment and build']:.3f} s")
@@ -6055,6 +6218,9 @@ def main():
         record = run("5 K4", phase_k4)
         if record is not None:
             records["K4"] = record
+        record = run("5 K5", phase_k5)
+        if record is not None:
+            records["K5"] = record
         staged_launches = run(
             "6 staged path",
             lambda: phase_staged(counters, summary.get("indices")), {})
@@ -6096,7 +6262,8 @@ def main():
     # launches each graph counted at capture, and beside them the launches
     # the profiler saw in one replay of each bucket's graph
     for key, name in (("K1", "threshold_pack"), ("K2", "conv_same_nhwc"),
-                      ("K3", "cc_label"), ("K4", "median")):
+                      ("K3", "cc_label"), ("K4", "median"),
+                      ("K5", "augment")):
         if key in records:
             records[key]["launches"] = staged_launches.get(name, 0)
             records[key]["launches_by_path"] = {

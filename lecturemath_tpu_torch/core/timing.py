@@ -35,18 +35,24 @@ The spans, by thread:
   ``stage01.drain``, tagged likewise.
 - ``lm-batch-prefetch`` (``train/dataset.py``, ``train/trainer.py``):
   ``data.batch``; ``data.decode``, ``data.augment``, ``data.masks`` a
-  sample (no CPU time), ``data.decode`` tagged with the form the pair was
-  preloaded in, ``"pixels"`` (kept decoded) or ``"png"`` (decoded again),
-  and untagged where the dataset reads its files; ``data.median`` once a
-  batch inside ``data.batch``, after its samples, where the batch's median
-  targets are made (the reconstruction phase; a sample drawn on its own
-  makes its median in one of its own), tagged with the route: ``"cuda"``
-  (kernel K4, one launch a batch), ``"native"`` or ``"numpy"`` (a crop at
-  a time on the host) (no CPU time); ``train.upload``. Its counter is
+  sample (no CPU time) around what the host does of it (the pair, the
+  crop choice and the generator's draws), ``data.decode`` tagged with the
+  form the pair was preloaded in, ``"pixels"`` (kept decoded) or ``"png"``
+  (decoded again), and untagged where the dataset reads its files;
+  ``data.pixels`` once a batch inside ``data.batch``, after its samples,
+  where the batch's colour chain and targets are made, tagged with the
+  route: ``"cuda"`` (staging, one upload and one launch of kernel K5) or
+  ``"host"`` (K5's plain version) (no CPU time); ``data.median`` once a
+  batch after it, where the batch's median targets are made (the
+  reconstruction phase), tagged ``"cuda"`` (kernel K4, one launch a batch
+  on K5's crops), ``"native"`` or ``"numpy"`` (a crop at a time on the
+  host) (no CPU time); ``train.upload``. Its counter is
   ``LectureNetDataset.data_stats``: ``pairs_pixels``, ``pairs_png`` and
   ``bytes_kept`` as ``preload`` left them, ``from_pixels`` and
   ``from_png`` the samples served from each form, ``median_card`` and
-  ``median_host`` the samples whose median target each route made.
+  ``median_host`` the samples whose median target each route made,
+  ``pixels_card`` and ``pixels_host`` the samples whose colour chain each
+  route made.
 - the trainer's: ``train.wait`` (``PrefetchIterator.__next__``) and
   ``train.step`` (``Trainer.step``).
 """

@@ -8,6 +8,9 @@
 // a time, as the port did on its batch prefetch thread (native.median_u8,
 // 27-31 ms a 256x256x3 crop at k = 35). Here a whole batch is one launch.
 //
+// The training data's median targets take the float32 m / 127.5 - 1 of
+// each median straight from the kernel, from crops that K5 left on the card.
+//
 // Bound on the H100: the function reads 1 B and writes 1 B a pixel, 3.1 MB
 // for [8, 256, 256, 3], 0.94 us at 3.35 TB/s; what takes the time is the
 // k*k values each output ranks. Huang's sliding histogram cuts that to 2k
@@ -41,10 +44,18 @@ __device__ __forceinline__ int clamp_to(int v, int hi) {
     return v < 0 ? 0 : (v > hi ? hi : v);
 }
 
+__device__ __forceinline__ void store(uint8_t* dst, float* unit,
+                                      long long at, int m) {
+    if (unit)  // x / 127.5 - 1, rounded as numpy's float32 does
+        unit[at] = __fsub_rn(__fdiv_rn((float)m, 127.5f), 1.0f);
+    else
+        dst[at] = (uint8_t)m;
+}
+
 __global__ void __launch_bounds__(THREADS)
 median_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
-              int height, int width, int channels, int ksize, int strips,
-              long long columns) {
+              float* __restrict__ unit, int height, int width, int channels,
+              int ksize, int strips, long long columns) {
     __shared__ uint16_t hist[256 * THREADS];
     const long long gid = (long long)blockIdx.x * THREADS + threadIdx.x;
     if (gid >= columns) return;
@@ -55,7 +66,7 @@ median_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
     const long long image = rest / strips;
     const int x = col / channels;
     const uint8_t* img = src + image * height * row_bytes + (col - x * channels);
-    uint8_t* out = dst + image * height * row_bytes + col;
+    const long long out = image * height * row_bytes + col;
     uint16_t* bins = hist + (threadIdx.x & 31) * 2 + (threadIdx.x >> 5);
     for (int v = 0; v < 256; ++v) bins[v * THREADS] = 0;
 
@@ -70,7 +81,7 @@ median_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
     }
     int m = 0, below = 0;  // the median, and the count of values under it
     while (below + bins[m * THREADS] <= rank) below += bins[m++ * THREADS];
-    out[(long long)y0 * row_bytes] = (uint8_t)m;
+    store(dst, unit, out + (long long)y0 * row_bytes, m);
 
     for (int y = y0 + 1; y < y1; ++y) {
         const uint8_t* leaving = img + (long long)clamp_to(y - 1 - r, height - 1)
@@ -87,23 +98,25 @@ median_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
         }
         while (below > rank) below -= bins[--m * THREADS];
         while (below + bins[m * THREADS] <= rank) below += bins[m++ * THREADS];
-        out[(long long)y * row_bytes] = (uint8_t)m;
+        store(dst, unit, out + (long long)y * row_bytes, m);
     }
 }
 
 }  // namespace
 
-// src and dst: contiguous uint8 [batch, height, width, channels] on the
-// card; ksize odd, 3 to 255 (the wrapper checks). Launches on `stream`,
+// src: contiguous uint8 [batch, height, width, channels] on the card; the
+// medians go to dst, of the same shape and type, or where unit is not null
+// to it as float32 m / 127.5 - 1 (the training data's median targets);
+// ksize odd, 3 to 255 (the wrapper checks). Launches on `stream`,
 // allocates nothing, does not synchronise; returns cudaGetLastError().
-extern "C" int lm_median_u8(const uint8_t* src, uint8_t* dst, int batch,
-                            int height, int width, int channels, int ksize,
-                            void* stream) {
+extern "C" int lm_median_u8(const uint8_t* src, uint8_t* dst, float* unit,
+                            int batch, int height, int width, int channels,
+                            int ksize, void* stream) {
     if (batch == 0 || height == 0 || width == 0 || channels == 0) return 0;
     const int strips = (height + STRIP - 1) / STRIP;
     const long long columns = (long long)batch * strips * width * channels;
     const long long blocks = (columns + THREADS - 1) / THREADS;
     median_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        src, dst, height, width, channels, ksize, strips, columns);
+        src, dst, unit, height, width, channels, ksize, strips, columns);
     return (int)cudaGetLastError();
 }

@@ -21,7 +21,7 @@ from typing import Dict, Iterable, List, Sequence
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC_DIR, "build")
-SOURCES = ("threshold_pack", "conv7", "cc_label", "median")
+SOURCES = ("threshold_pack", "conv7", "cc_label", "median", "augment")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -8,14 +8,14 @@ replicated.
 For a CUDA tensor ``median_u8_batch`` launches ``csrc/median.cu`` (Huang's
 sliding histogram, a thread down a column strip). For a CPU tensor it runs
 the plain version, ``native.median_u8`` an image at a time, which the tests
-hold K4 to byte for byte. ``median_u8_pinned`` is the training data's route
-to K4 from host crops (``train/dataset.py``).
+hold K4 to byte for byte. ``median_unit_batch`` is the training data's
+route (``train/dataset.py``): the same medians as float32 m / 127.5 - 1,
+which K4 writes itself, from crops that kernel K5 left on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence
 
 import numpy as np
 import torch
@@ -25,11 +25,10 @@ from . import cuda_build
 
 _SIGNATURES = {
     "lm_median_u8": (ctypes.c_int, [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]),
 }
-
-_side_streams: Dict[int, torch.cuda.Stream] = {}
 
 
 def median_u8_plain(crops: torch.Tensor, ksize: int) -> torch.Tensor:
@@ -45,6 +44,17 @@ def median_u8_batch(crops: torch.Tensor, ksize: int) -> torch.Tensor:
     """The k x k median of each crop of a contiguous uint8 [B, H, W, C]
     tensor, on its device: kernel K4 for a CUDA tensor, launched on the
     current stream; ``median_u8_plain`` for a CPU one."""
+    return _median(crops, ksize, torch.uint8)
+
+
+def median_unit_batch(crops: torch.Tensor, ksize: int) -> torch.Tensor:
+    """``median_u8_batch`` as float32 m / 127.5 - 1, rounded as numpy's
+    float32 rounds it: the training data's median targets. K4 writes them
+    for a CUDA tensor."""
+    return _median(crops, ksize, torch.float32)
+
+
+def _median(crops: torch.Tensor, ksize: int, dtype: torch.dtype):
     if not isinstance(crops, torch.Tensor):
         raise TypeError(f"median_u8_batch: crops must be a tensor, got "
                         f"{type(crops).__name__}")
@@ -61,7 +71,11 @@ def median_u8_batch(crops: torch.Tensor, ksize: int) -> torch.Tensor:
         raise ValueError(f"median_u8_batch: ksize must be odd and in "
                          f"3..255, got {ksize!r}")
     if crops.device.type == "cpu":
-        return median_u8_plain(crops, ksize)
+        median = median_u8_plain(crops, ksize)
+        if dtype == torch.uint8:
+            return median
+        return torch.from_numpy(median.numpy().astype(np.float32) / 127.5
+                                - 1.0)
     if crops.device.type != "cuda":
         raise ValueError(f"median_u8_batch: unsupported device "
                          f"{crops.device}")
@@ -69,41 +83,20 @@ def median_u8_batch(crops: torch.Tensor, ksize: int) -> torch.Tensor:
     if height * width * channels >= 2 ** 31:
         raise ValueError(f"median_u8_batch: a crop of {height}x{width}x"
                          f"{channels} bytes is too large")
-    out = torch.empty_like(crops)
+    out = torch.empty(crops.shape, dtype=dtype, device=crops.device)
     if out.numel() == 0:
         return out
+    unit = dtype == torch.float32
     lib = cuda_build.load("median", _SIGNATURES)
     with torch.cuda.device(crops.device):
         code = lib.lm_median_u8(
-            crops.data_ptr(), out.data_ptr(), batch, height, width, channels,
-            int(ksize), torch.cuda.current_stream(crops.device).cuda_stream)
+            crops.data_ptr(), None if unit else out.data_ptr(),
+            out.data_ptr() if unit else None, batch, height, width,
+            channels, int(ksize),
+            torch.cuda.current_stream(crops.device).cuda_stream)
     cuda_build.check(code, "median")
     median_u8_batch.launches += 1
     return out
 
 
 median_u8_batch.launches = 0
-
-
-def median_u8_pinned(crops: Sequence[np.ndarray], ksize: int) -> np.ndarray:
-    """The medians of host crops (equal uint8 [H, W, C] arrays) through K4
-    on the calling thread's card, as a uint8 [B, H, W, C] array.
-
-    The crops are stacked straight into pinned memory, uploaded, ranked and
-    copied back on a side stream of this module's, and only that stream is
-    waited for: the steps another thread has in flight on the default
-    stream do not hold the medians up."""
-    device = torch.device("cuda", torch.cuda.current_device())
-    stream = _side_streams.get(device.index)
-    if stream is None:
-        stream = _side_streams.setdefault(device.index,
-                                          torch.cuda.Stream(device))
-    shape = (len(crops), *crops[0].shape)
-    host = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
-    np.stack(crops, out=host.numpy())
-    out = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
-    with torch.cuda.stream(stream):
-        medians = median_u8_batch(host.to(device, non_blocking=True), ksize)
-        out.copy_(medians, non_blocking=True)
-    stream.synchronize()
-    return out.numpy()

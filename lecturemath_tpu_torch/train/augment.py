@@ -11,7 +11,11 @@ The JAX package's module with each OpenCV call replaced by its bit-exact
 counterpart in ``utils/image.py`` (``rgb_to_hsv``/``hsv_to_rgb``,
 ``rgb_to_gray``, ``ellipse_kernel``, ``erode``, ``median_blur``); every
 function draws from the generator in the same order, so the same seed gives
-the same samples.
+the same samples. ``hue_shift`` and ``gaussian_noise`` are each a draw
+(``hue_draw``, ``rng.standard_normal``) and the pixel work on it
+(``hue_rotate``, ``add_noise``), which the training batches make apart: the
+draws on the host, the pixels in kernel K5 where there is a card
+(``ops/augment.py``).
 """
 
 from __future__ import annotations
@@ -50,7 +54,8 @@ def random_crop_min_fg(rng: np.random.Generator, img: np.ndarray,
             return crop_img, (gt[top:top + ch, left:left + cw]
                               if gt is not None else None)
         crop_gt = gt[top:top + ch, left:left + cw]
-        fg_prc = (crop_gt == 0).sum() / (ch * cw)
+        # the count of ink (== 0) pixels, without a temporary mask
+        fg_prc = (crop_gt.size - np.count_nonzero(crop_gt)) / (ch * cw)
         if fg_prc >= min_fg_prc or attempt == max_tries - 1:
             return crop_img, crop_gt
     return crop_img, crop_gt
@@ -60,18 +65,34 @@ def color_invert(img: np.ndarray) -> np.ndarray:
     return 255 - img
 
 
+def hue_draw(rng: np.random.Generator) -> int:
+    """The shift ``hue_shift`` draws: a rotation in [-0.45, 0.45) of the hue
+    circle, in whole steps of OpenCV's hue (which spans [0, 180))."""
+    return int((rng.random() * 0.9 - 0.45) * 180.0)
+
+
+def hue_rotate(img: np.ndarray, shift: int) -> np.ndarray:
+    """The hue of each pixel moved by ``shift`` steps, through OpenCV's
+    8-bit HSV."""
+    hsv = rgb_to_hsv(np.ascontiguousarray(img)).astype(np.int16)
+    hsv[:, :, 0] = (hsv[:, :, 0] + shift) % 180
+    return hsv_to_rgb(hsv.astype(np.uint8))
+
+
 def hue_shift(rng: np.random.Generator, img: np.ndarray) -> np.ndarray:
     """Random hue rotation in [-0.45, 0.45) of the hue circle."""
-    shift = (rng.random() * 0.9 - 0.45) * 180.0  # cv2 hue is [0, 180)
-    hsv = rgb_to_hsv(np.ascontiguousarray(img)).astype(np.int16)
-    hsv[:, :, 0] = (hsv[:, :, 0] + int(shift)) % 180
-    return hsv_to_rgb(hsv.astype(np.uint8))
+    return hue_rotate(img, hue_draw(rng))
+
+
+def add_noise(img: np.ndarray, noise: np.ndarray, level: float) -> np.ndarray:
+    """``img`` plus ``level`` times the float64 ``noise``, clipped to uint8."""
+    noisy = img.astype(np.float64) + noise * level
+    return np.clip(noisy, 0, 255).astype(np.uint8)
 
 
 def gaussian_noise(rng: np.random.Generator, img: np.ndarray,
                    level: float) -> np.ndarray:
-    noisy = img.astype(np.float64) + rng.standard_normal(img.shape) * level
-    return np.clip(noisy, 0, 255).astype(np.uint8)
+    return add_noise(img, rng.standard_normal(img.shape), level)
 
 
 def luminosity_jitter(rng: np.random.Generator, img: np.ndarray) -> np.ndarray:

@@ -16,16 +16,26 @@ samples; kept pixels spare each sample the decode of a whole frame.
 ``data_stats`` counts the pairs and bytes kept in each form and the samples
 served from each.
 
-The median targets of a reconstruction batch are made together once its
-samples are drawn (``batches``): in one launch of kernel K4 on the card
-where the process sees one (``ops/median.py``), else on the host a crop at
-a time (``utils/image.py median_route``). Both give the exact median, so
-the batch is the same either way; ``data_stats`` counts the samples whose
-target each route made.
+A batch is made in two parts (``batches``). On the host, each sample's
+plan (``_plan``): every draw from the generator in the order the
+reference's chain draws them (the flips, the crop with its retries on the
+ground truth, the inversion, hue and noise coins, the hue shift and the
+noise's normals) and its crops. Then the batch's pixels at once (``_make``):
+the colour chain, the float image and the ground truth's targets, in one
+launch of kernel K5 on the card where the process sees one
+(``ops/augment.py``; the route of ``utils/image.py median_route``), else by
+K5's plain version on the host; then the median targets of a
+reconstruction batch, from K5's crops where they lie, by kernel K4
+(``ops/median.py``) or on the host a crop at a time. A sample that draws
+the luminosity jitter runs its whole colour chain on the host (its
+``np.power`` is not the card's), and K5 only converts it. Every route gives
+the same bytes, so the batch is the same either way; ``data_stats`` counts
+the samples whose pixels and median target each route made.
 
-Each sample dict has: image [H,W,3] float32 in [-1,1] NHWC, target (gt mask
-or normalized image in reconstruction mode), weights, text_mask, median.
-Samples stay NHWC numpy; the trainer makes NCHW tensors of them.
+Each batch dict has: image [B,H,W,3] float32 in [-1,1] NHWC, target (gt
+mask or the image itself in reconstruction mode), weights, text_mask,
+median. On the card's route they are CUDA tensors, on the host's numpy
+arrays; the trainer makes NCHW tensors of them.
 
 Images are read without OpenCV: PNGs of every kind through
 ``utils/png.py`` (as ``cv2.imread`` reads them), the upscale through
@@ -37,9 +47,10 @@ installed, loading one raises ``ImageFormatError``.
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..core.config import Config
 from ..core.timing import span
@@ -47,7 +58,8 @@ from ..utils.image import median_route, resize_linear, resize_nearest
 from ..utils import png
 from ..utils.png import (ImageFormatError, decode_png_color, decode_png_gray,
                          encode_png)
-from ..ops.median import median_u8_pinned
+from ..ops.augment import MAX_RADIUS, augment_batch
+from ..ops.median import median_unit_batch
 from . import augment
 
 
@@ -152,12 +164,15 @@ class LectureNetDataset:
         self.total_foreground = 0
         self.total_background = 0
         # pairs and bytes kept by preload in each form, samples served from
-        # each (the hit share is from_pixels / (from_pixels + from_png)), and
+        # each (the hit share is from_pixels / (from_pixels + from_png)),
         # samples whose median target the card or the host made (the card's
-        # share is median_card / (median_card + median_host))
+        # share is median_card / (median_card + median_host)), and samples
+        # whose colour chain the card (K5) or the host made (the card's share
+        # is pixels_card / (pixels_card + pixels_host))
         self.data_stats = dict.fromkeys(
             ("pairs_pixels", "pairs_png", "bytes_kept", "from_pixels",
-             "from_png", "median_card", "median_host"), 0)
+             "from_png", "median_card", "median_host", "pixels_card",
+             "pixels_host"), 0)
 
     @classmethod
     def from_config(cls, config: Config, image_list, ground_truth_list,
@@ -286,20 +301,24 @@ class LectureNetDataset:
     # ------------------------------------------------------------ sampling
 
     def sample(self, index: int) -> Dict[str, np.ndarray]:
-        """One augmented sample (see ``_draw``), its median target made on
-        its own (``_medians``)."""
-        sample = self._draw(index)
-        if "median" in sample:
-            sample["median"] = self._medians([sample["median"]])[0]
-        return sample
+        """One augmented sample: ``batches``' work on a batch of one, as
+        numpy arrays."""
+        batch = self._make([self._plan(index)])
+        return {key: (value[0].cpu().numpy() if isinstance(value, torch.Tensor)
+                      else value[0]) for key, value in batch.items()}
 
-    def _draw(self, index: int) -> Dict[str, np.ndarray]:
-        """One augmented sample, with the uint8 crop in place of its median
-        target; its spans ``data.decode`` (tagged with the pair's form),
-        ``data.augment`` and ``data.masks`` (core/timing.py)."""
+    def _plan(self, index: int) -> _Plan:
+        """Every draw of one sample from ``self.rng``, in the order the
+        reference's chain draws them, and its crops; the pixel work is left
+        to the batch (``_make``). Its spans ``data.decode`` (tagged with the
+        pair's form), ``data.augment`` and ``data.masks``
+        (core/timing.py)."""
         rng = self.rng
         with span("data.decode", cpu=False) as decode:
             decode.tag, img, gt = self._get_pair(index)
+
+        def coin(chance):
+            return chance is not None and rng.random() < chance
 
         with span("data.augment", cpu=False):
             if self.flip_chance is not None:
@@ -310,60 +329,99 @@ class LectureNetDataset:
                                                      self.crop_size,
                                                      self.crop_min_fg_prc)
 
-            if (self.color_invert_chance is not None and
-                    rng.random() < self.color_invert_chance):
-                img = augment.color_invert(img)
-            if (self.color_change_chance is not None and
-                    rng.random() < self.color_change_chance):
-                img = augment.hue_shift(rng, img)
-            if (self.gaussian_noise_chance is not None and
-                    rng.random() < self.gaussian_noise_chance):
-                img = augment.gaussian_noise(rng, img,
-                                             self.gaussian_noise_level)
-            if (self.luminosity_change_chance is not None and
-                    rng.random() < self.luminosity_change_chance):
+            invert = coin(self.color_invert_chance)
+            hue = (augment.hue_draw(rng) if coin(self.color_change_chance)
+                   else None)
+            noise = (rng.standard_normal(img.shape)
+                     if coin(self.gaussian_noise_chance) else None)
+            on_host = coin(self.luminosity_change_chance)
+            if on_host:
+                # its chain ends in np.power, which the card does not round
+                # as the host does: the host runs the whole chain
+                if invert:
+                    img = augment.color_invert(img)
+                if hue is not None:
+                    img = augment.hue_rotate(img, hue)
+                if noise is not None:
+                    img = augment.add_noise(img, noise,
+                                            self.gaussian_noise_level)
                 img = augment.luminosity_jitter(rng, img)
-
-            img = np.ascontiguousarray(img)
-            sample = {"image": img.astype(np.float32) / 127.5 - 1.0}
+                invert, hue, noise = False, None, None
 
         with span("data.masks", cpu=False):
-            if self.text_mask_expansion is not None and gt is not None:
-                mask = augment.text_region_mask(np.ascontiguousarray(gt),
-                                                self.text_mask_expansion)
-                sample["text_mask"] = (mask.astype(np.float32)
-                                       / 255.0)[..., None]
+            gt = gt if self._gt_targets else None
+        return _Plan(img, gt, invert, hue, noise, on_host)
 
-            if self.reconstruct_median:
-                sample["median"] = img
+    @property
+    def _gt_targets(self) -> bool:
+        """Whether a sample's ground truth makes any of its targets."""
+        return self.ground_truth_list is not None and (
+            not self.reconstruction_mode
+            or self.text_mask_expansion is not None
+            or self.weight_expansion is not None)
 
-            if self.reconstruction_mode:
-                sample["target"] = sample["image"]
-            elif gt is not None:
-                sample["target"] = (gt.astype(np.float32) / 255.0)[..., None]
+    def _make(self, plans: Sequence[_Plan]):
+        """The batch of ``plans``: its pixels in one span ``data.pixels``,
+        tagged with the route (``pixel_device``): staged into one buffer,
+        uploaded and made by one launch of kernel K5 on the card (the
+        arrays stay there, NHWC tensors), or by K5's plain version on the
+        host (numpy arrays); then its median targets (``_medians``)."""
+        device = pixel_device() if self._fits_k5 else None
+        stats = self.data_stats
+        with span("data.pixels", cpu=False,
+                  tag="host" if device is None else "cuda"):
+            staged = _stage(plans, device)
+            truths = staged.get("truths")
+            out = augment_batch(
+                staged["images"], staged["params"], staged["noise"],
+                self.gaussian_noise_level, truths,
+                target=truths is not None and not self.reconstruction_mode,
+                text_mask_expansion=(None if truths is None
+                                     else self.text_mask_expansion),
+                weight_expansion=(None if truths is None
+                                  else self.weight_expansion),
+                weight_fg_extra=self.weight_fg_extra,
+                keep_crops=self.reconstruct_median)
+            on_host = len(plans) if device is None else sum(
+                plan.on_host for plan in plans)
+            stats["pixels_host"] += on_host
+            stats["pixels_card"] += len(plans) - on_host
+        batch = {"image": out["image"]}
+        if "text_mask" in out:
+            batch["text_mask"] = out["text_mask"]
+        if self.reconstruct_median:
+            batch["median"] = self._medians(out["crops"], device)
+        if self.reconstruction_mode:
+            batch["target"] = out["image"]
+        elif "target" in out:
+            batch["target"] = out["target"]
+        if "weights" in out:
+            batch["weights"] = out["weights"]
+        if device is None:
+            batch = {key: value.numpy() for key, value in batch.items()}
+        return batch
 
-            if self.weight_expansion is not None and gt is not None:
-                sample["weights"] = augment.weight_map(
-                    np.ascontiguousarray(gt), self.weight_expansion,
-                    self.weight_fg_extra)[..., None]
+    @property
+    def _fits_k5(self) -> bool:
+        """Whether K5 takes this dataset's erosions (a radius of at most
+        ``ops/augment.py MAX_RADIUS``); past that the host makes them."""
+        return all(e is None or e <= MAX_RADIUS for e in
+                   (self.text_mask_expansion, self.weight_expansion))
 
-        return sample
-
-    def _medians(self, crops) -> np.ndarray:
-        """The float32 median targets of uint8 crops, a batch in one span
-        ``data.median`` tagged with the route that made them
-        (``utils/image.py median_route``): one launch of K4 on the card, or
-        a crop at a time on the host."""
-        route = median_route()
+    def _medians(self, crops: torch.Tensor, device):
+        """The float32 median targets of the batch's uint8 crops, in one
+        span ``data.median`` tagged with the route that made them
+        (``utils/image.py median_route``): one launch of K4 on the card
+        where the crops lie, or a crop at a time on the host."""
+        route = "cuda" if device is not None else median_route()
         with span("data.median", cpu=False, tag=route):
-            if route == "cuda":
-                median = median_u8_pinned(crops, self.reconstruct_median_k)
+            if device is not None:
                 self.data_stats["median_card"] += len(crops)
-            else:
-                median = np.stack([augment.median_target(
-                    crop, self.reconstruct_median_k) for crop in crops])
-                self.data_stats["median_host"] += len(crops)
-            return median.astype(np.float32) / 127.5 - 1.0
+                return median_unit_batch(crops, self.reconstruct_median_k)
+            self.data_stats["median_host"] += len(crops)
+            median = np.stack([augment.median_target(
+                crop, self.reconstruct_median_k) for crop in crops.numpy()])
+            return torch.from_numpy(median.astype(np.float32) / 127.5 - 1.0)
 
     def batches(self, batch_size: int, shuffle: bool = True):
         order = np.arange(len(self))
@@ -371,11 +429,78 @@ class LectureNetDataset:
             self.rng.shuffle(order)
         for start in range(0, len(order) - batch_size + 1, batch_size):
             with span("data.batch"):
-                samples = [self._draw(int(i))
-                           for i in order[start:start + batch_size]]
-                batch = {}
-                for key in samples[0]:
-                    parts = [s[key] for s in samples]
-                    batch[key] = (self._medians(parts) if key == "median"
-                                  else np.stack(parts))
+                batch = self._make([self._plan(int(i))
+                                    for i in order[start:start + batch_size]])
             yield batch
+
+
+class _Plan(NamedTuple):
+    """One sample as drawn: its uint8 crops and the draws of its colour
+    chain. ``on_host``: a luminosity jitter was drawn, so ``img`` holds the
+    whole chain's result and nothing of the chain is left."""
+    img: np.ndarray                # [H, W, 3]
+    gt: Optional[np.ndarray]       # [H, W], where a target needs it
+    invert: bool
+    hue: Optional[int]             # the hue shift drawn, or None
+    noise: Optional[np.ndarray]    # float64 [H, W, 3] normals, or None
+    on_host: bool
+
+
+def pixel_device() -> Optional[torch.device]:
+    """The card a batch's pixels are made on (kernel K5), or None: the host.
+    The card where the process sees one and was not forked after using it
+    (``utils/image.py median_route``): the calling thread's."""
+    if median_route() != "cuda":
+        return None
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _stage(plans: Sequence[_Plan], device: Optional[torch.device]):
+    """The plans' crops, per-sample parameters (``ops/augment.py``) and
+    noise rows, copied into one buffer (pinned, for a card) and moved to
+    ``device`` in one copy (none for the host): a dict of views of it."""
+    img, gt = plans[0].img, plans[0].gt
+    batch, (height, width) = len(plans), img.shape[:2]
+    noisy = [plan for plan in plans if plan.noise is not None]
+    parts = [("images", np.uint8, (batch, height, width, 3)),
+             ("truths", np.uint8, (batch, height, width)),
+             ("params", np.int32, (batch, 4)),
+             ("noise", np.float64, (len(noisy), height, width, 3))]
+    if gt is None:
+        del parts[1]
+    layout, size = {}, 0
+    for name, dtype, shape in parts:
+        layout[name] = (size, dtype, shape)
+        size += -(-int(np.prod(shape)) * np.dtype(dtype).itemsize // 16) * 16
+    buffer = torch.empty(size, dtype=torch.uint8,
+                         pin_memory=device is not None
+                         and device.type == "cuda")
+
+    def view(source, name):
+        offset, dtype, shape = layout[name]
+        count = int(np.prod(shape))
+        return source[offset:offset + count * np.dtype(dtype).itemsize]
+
+    host = buffer.numpy()
+
+    def host_view(name):
+        _, dtype, shape = layout[name]
+        return view(host, name).view(dtype).reshape(shape)
+
+    np.stack([plan.img for plan in plans], out=host_view("images"))
+    if gt is not None:
+        np.stack([plan.gt for plan in plans], out=host_view("truths"))
+    params = host_view("params")
+    rows = host_view("noise")
+    row = 0
+    for k, plan in enumerate(plans):
+        params[k] = (plan.invert, plan.hue is not None, plan.hue or 0,
+                     row if plan.noise is not None else -1)
+        if plan.noise is not None:
+            rows[row] = plan.noise
+            row += 1
+    moved = buffer if device is None else buffer.to(device, non_blocking=True)
+    dtypes = {np.uint8: torch.uint8, np.int32: torch.int32,
+              np.float64: torch.float64}
+    return {name: view(moved, name).view(dtypes[dtype]).view(shape)
+            for name, (_, dtype, shape) in layout.items()}

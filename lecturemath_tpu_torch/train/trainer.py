@@ -52,6 +52,7 @@ layout, not the result: the port has one layout, ``channels_last``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 from dataclasses import dataclass
@@ -95,6 +96,32 @@ def clip_by_global_norm_(parameters, max_norm: float,
         g.copy_(torch.where(norm < max_norm, g, g / norm.to(g.device)
                             * max_norm))
     return norm
+
+
+@contextlib.contextmanager
+def _timed_convolutions():
+    """cuDNN's convolutions timed on each new shape and the fastest kept
+    (``torch.backends.cudnn.benchmark``) for the span of a step: a step's
+    shapes repeat on every batch, so the first one pays for the timing.
+
+    The reconstruction phase's steps run so. Its float32 convolutions get
+    FFT engines from cuDNN's heuristics, which transpose the channels_last
+    activations and fork onto a second stream; timed, a step of 8 crops of
+    256x256 takes 22.2 ms on an H100 against 48.6. The binarizer phase
+    keeps the heuristics' engines: timed, its first gradient lay about
+    twice as far from a float32 reference's and its set-up took seconds
+    more, for a step that is not what holds it back."""
+    kept = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark = kept
+
+
+class DeviceBatch(dict):
+    """A batch that ``Trainer.to_device`` made: NCHW tensors on the
+    trainer's device."""
 
 
 class Trainer:
@@ -205,20 +232,24 @@ class Trainer:
                     if isinstance(module, nn.BatchNorm2d):
                         module.eval()
 
-    def to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str,
-                                                                 torch.Tensor]:
-        """NHWC numpy batch -> NCHW tensors on the device, channels_last
-        (pinned and copied asynchronously to a card). Under a mesh the
-        batch is the global one, and this process keeps its rows."""
+    def to_device(self, batch) -> "DeviceBatch":
+        """An NHWC batch as the dataset yields it -> NCHW tensors on the
+        device, channels_last: numpy arrays pinned and copied asynchronously
+        to a card, tensors already on the device (the card's route of
+        ``LectureNetDataset.batches``) only permuted. Under a mesh the batch
+        is the global one, and this process keeps its rows."""
         with span("train.upload"):
             if self.mesh is not None:
                 batch = process_rows(self.mesh, batch)
-            out = {}
+            out = DeviceBatch()
             for key, value in batch.items():
-                tensor = torch.from_numpy(np.ascontiguousarray(value))
-                if self.device.type == "cuda":
-                    tensor = tensor.pin_memory().to(self.device,
-                                                    non_blocking=True)
+                if isinstance(value, torch.Tensor):
+                    tensor = value.to(self.device)
+                else:
+                    tensor = torch.from_numpy(np.ascontiguousarray(value))
+                    if self.device.type == "cuda":
+                        tensor = tensor.pin_memory().to(self.device,
+                                                        non_blocking=True)
                 out[key] = tensor.permute(0, 3, 1, 2)
         return out
 
@@ -240,23 +271,25 @@ class Trainer:
         return torch.func.functional_call(self._fold_model, folded, (image,))
 
     def step(self, batch) -> Dict[str, torch.Tensor]:
-        """One SGD step on ``batch`` (numpy NHWC, or tensors from
-        ``to_device``), the span ``train.step``. Returns the per-term losses
-        and their total as device tensors."""
+        """One SGD step on ``batch`` (NHWC as the dataset yields it, or
+        ``to_device``'s), the span ``train.step``. Returns the per-term
+        losses and their total as device tensors."""
         with span("train.step"):
             return self._step(batch)
 
     def _step(self, batch) -> Dict[str, torch.Tensor]:
-        if isinstance(next(iter(batch.values())), np.ndarray):
+        if not isinstance(batch, DeviceBatch):
             batch = self.to_device(batch)
         self._set_modes()
         self.optimizer.zero_grad(set_to_none=True)
-        outputs = self.forward(batch["image"].contiguous(
-            memory_format=torch.channels_last))
-        terms = phase_losses(self.phase, outputs, batch, self.use_weights,
-                             self._group)
-        total = sum(terms.values())
-        (total * self._loss_share if self._axis else total).backward()
+        with (_timed_convolutions() if self.phase == "reconstruction"
+              else contextlib.nullcontext()):
+            outputs = self.forward(batch["image"].contiguous(
+                memory_format=torch.channels_last))
+            terms = phase_losses(self.phase, outputs, batch,
+                                 self.use_weights, self._group)
+            total = sum(terms.values())
+            (total * self._loss_share if self._axis else total).backward()
         metrics = dict(terms, total=total)
         if self._axis:
             self._sum_replicated_gradients()

@@ -20,7 +20,7 @@ from lecturemath_tpu.train.dataset import LectureNetDataset as JAXDataset
 from lecturemath_tpu.utils.synthetic import synthetic_rgb_lecture
 from lecturemath_tpu_torch import native
 from lecturemath_tpu_torch.core import timing
-from lecturemath_tpu_torch.ops.median import median_u8_batch
+from lecturemath_tpu_torch.ops.median import median_unit_batch
 from lecturemath_tpu_torch.train import augment as taug
 from lecturemath_tpu_torch.train import dataset as dataset_module
 from lecturemath_tpu_torch.train.dataset import (ImageFormatError,
@@ -374,18 +374,19 @@ def test_decode_span_names_the_pairs_form(image_files, monkeypatch):
     assert sorted(tags[:4]) == ["png"] * 4 and tags[4:] == [None] * 4
     assert split_stats["pairs_png"] == 4
     # a dataset reading its files counts no pair's form, only the medians
-    # its four samples were given on the host
+    # and pixels its four samples were given on the host
     assert files.data_stats == dict(dict.fromkeys(files.data_stats, 0),
-                                    median_host=4)
+                                    median_host=4, pixels_host=4)
 
 
 @pytest.mark.parametrize("seed", [0, 3])
 def test_median_targets_count_their_route_and_agree_across_routes(
         image_files, monkeypatch, seed):
     """Without a card every sample's median target is made on the host and
-    counted under ``median_host``. The card's route, its K4 call stood in
-    for by the plain version, gives the same batches over two epochs from
-    one call a batch, and counts ``median_card``."""
+    counted under ``median_host``. The card's route, its device stood in
+    for by the CPU (K5 and K4 by their plain versions, on the batch's
+    staged tensors), gives the same batches over two epochs from one K4
+    call a batch, and counts ``median_card``."""
     images, _ = image_files
     options = _preload_options(True)
     host = LectureNetDataset(images, None, reconstruction_mode=True,
@@ -395,15 +396,18 @@ def test_median_targets_count_their_route_and_agree_across_routes(
             host.data_stats["median_card"]) == (8, 0)
     calls = []
 
-    def plain_pinned(crops, k):
+    def plain_unit(crops, k):
         calls.append(len(crops))
-        return median_u8_batch(torch.from_numpy(np.stack(crops)), k).numpy()
+        return median_unit_batch(crops, k)
 
-    monkeypatch.setattr(dataset_module, "median_route", lambda: "cuda")
-    monkeypatch.setattr(dataset_module, "median_u8_pinned", plain_pinned)
+    monkeypatch.setattr(dataset_module, "pixel_device",
+                        lambda: torch.device("cpu"))
+    monkeypatch.setattr(dataset_module, "median_unit_batch", plain_unit)
     card = LectureNetDataset(images, None, reconstruction_mode=True,
                              seed=seed, **options)
-    _assert_same_batches(_epochs(card), host_epochs)
+    card_epochs = [[{key: value.numpy() for key, value in batch.items()}
+                    for batch in epoch] for epoch in _epochs(card)]
+    _assert_same_batches(card_epochs, host_epochs)
     assert calls == [2] * 4
     assert (card.data_stats["median_host"],
             card.data_stats["median_card"]) == (0, 8)

@@ -21,8 +21,10 @@ from lecturemath_tpu_torch.ops.cc_label import (compact_labels,
 from lecturemath_tpu_torch.ops.cc_label_pallas import label_components_tiled
 from lecturemath_tpu_torch.ops.conv7 import (conv7_same, conv_same_nhwc,
                                              conv_same_plain)
+from lecturemath_tpu_torch.ops.augment import augment_batch
 from lecturemath_tpu_torch.ops.median import (median_u8_batch,
-                                              median_u8_plain)
+                                              median_u8_plain,
+                                              median_unit_batch)
 from lecturemath_tpu_torch.ops.postprocess import (threshold_pack,
                                                    threshold_pack_plain)
 
@@ -420,46 +422,51 @@ def test_median_kernel_refuses_what_it_does_not_take(cuda):
         median_u8_batch(crops[0], 3)
 
 
-def test_reconstruction_batches_on_the_card_equal_the_hosts(cuda, tmp_path,
-                                                            monkeypatch):
-    """A process that sees a card takes K4's route. Two epochs of
-    ``batches(8)`` from one seed at the recipe's crop and k = 35, drawn on
-    a prefetch thread with the medians made by K4 (one launch a batch) and
-    on the host: equal key for key, dtype and value."""
-    from lecturemath_tpu_torch.train import dataset as dataset_module
-    from lecturemath_tpu_torch.train.dataset import LectureNetDataset
-    from lecturemath_tpu_torch.train.prefetch import prefetch
+def _training_frames(tmp_path, seed, n_frames, truths=False):
+    """PNG files of synthetic board frames at 300x400 (and their ground
+    truth)."""
     from lecturemath_tpu_torch.utils.png import encode_png
     from lecturemath_tpu_torch.utils.synthetic import synthetic_rgb_lecture
 
-    rgb, _, _, _ = synthetic_rgb_lecture(seed=11, n_frames=16, height=300,
-                                         width=400)
-    images = []
+    rgb, binary, _, _ = synthetic_rgb_lecture(seed=seed, n_frames=n_frames,
+                                              height=300, width=400)
+    images, gts = [], []
     for k, frame in enumerate(rgb):
         path = tmp_path / f"{k}.png"
         path.write_bytes(encode_png(np.ascontiguousarray(frame[:, :, ::-1])))
         images.append(str(path))
+        path = tmp_path / f"{k}_gt.png"
+        path.write_bytes(encode_png(np.ascontiguousarray(255 - binary[k])))
+        gts.append(str(path))
+    return (images, gts) if truths else images
+
+
+def _card_and_host_epochs(monkeypatch, make):
+    """Two epochs of ``batches(8)`` drawn on a prefetch thread, on K5's
+    route and on the host's: (data_stats, batches as numpy) of each, and
+    the K4 and K5 launches of each."""
+    from lecturemath_tpu_torch.train import dataset as dataset_module
+    from lecturemath_tpu_torch.train.prefetch import prefetch
 
     assert dataset_module.median_route() == "cuda"
-
-    def epochs(route):
+    runs = {}
+    for route in ("cuda", "native"):
         monkeypatch.setattr(dataset_module, "median_route", lambda: route)
-        dataset = LectureNetDataset(
-            images, None, reconstruction_mode=True, crop_size=(256, 256),
-            flip_chance=0.5, color_invert_chance=0.5, color_change_chance=0.5,
-            gaussian_noise_chance=0.5, reconstruct_median=True,
-            reconstruct_median_k=35, seed=5)
+        launches = (median_u8_batch.launches, augment_batch.launches)
+        dataset = make()
         dataset.preload()
-        drawn = [list(prefetch(dataset.batches(8), 2)) for _ in range(2)]
-        return dataset.data_stats, drawn
+        drawn = [[{key: (value.cpu().numpy()
+                         if isinstance(value, torch.Tensor) else value)
+                   for key, value in batch.items()}
+                  for batch in prefetch(dataset.batches(8), 2)]
+                 for _ in range(2)]
+        runs[route] = (dataset.data_stats, drawn,
+                       (median_u8_batch.launches - launches[0],
+                        augment_batch.launches - launches[1]))
+    return runs
 
-    before = median_u8_batch.launches
-    card_stats, on_card = epochs("cuda")
-    assert median_u8_batch.launches == before + 4
-    host_stats, on_host = epochs("native")
-    assert median_u8_batch.launches == before + 4
-    assert (card_stats["median_card"], card_stats["median_host"]) == (32, 0)
-    assert (host_stats["median_card"], host_stats["median_host"]) == (0, 32)
+
+def _assert_equal_epochs(on_card, on_host):
     for card_epoch, host_epoch in zip(on_card, on_host):
         assert len(card_epoch) == len(host_epoch) == 2
         for a, b in zip(card_epoch, host_epoch):
@@ -467,6 +474,163 @@ def test_reconstruction_batches_on_the_card_equal_the_hosts(cuda, tmp_path,
             for key in b:
                 assert a[key].dtype == b[key].dtype, key
                 np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+
+
+def test_reconstruction_batches_on_the_card_equal_the_hosts(cuda, tmp_path,
+                                                            monkeypatch):
+    """A process that sees a card takes the card's route: K5 makes the
+    batch's pixels and K4 their medians from K5's crops where they lie.
+    Two epochs of ``batches(8)`` from one seed at the recipe's crop and
+    k = 35, drawn on a prefetch thread on the card (one K5 and one K4
+    launch a batch) and on the host: equal key for key, dtype and
+    value."""
+    from lecturemath_tpu_torch.train.dataset import LectureNetDataset
+
+    images = _training_frames(tmp_path, 11, 16)
+    runs = _card_and_host_epochs(monkeypatch, lambda: LectureNetDataset(
+        images, None, reconstruction_mode=True, crop_size=(256, 256),
+        flip_chance=0.5, color_invert_chance=0.5, color_change_chance=0.5,
+        gaussian_noise_chance=0.5, reconstruct_median=True,
+        reconstruct_median_k=35, seed=5))
+    card_stats, on_card, card_launches = runs["cuda"]
+    host_stats, on_host, host_launches = runs["native"]
+    assert card_launches == (4, 4) and host_launches == (0, 0)
+    assert (card_stats["median_card"], card_stats["median_host"]) == (32, 0)
+    assert (host_stats["median_card"], host_stats["median_host"]) == (0, 32)
+    assert (card_stats["pixels_card"], card_stats["pixels_host"]) == (32, 0)
+    _assert_equal_epochs(on_card, on_host)
+
+
+def test_binarizer_batches_on_the_card_equal_the_hosts(cuda, tmp_path,
+                                                       monkeypatch):
+    """The binarizer phase at the train-bin-b8 recipe (256x256 crops of at
+    least a tenth ink, the text mask at e = 15, the weights at w = 1, the
+    published augmentation menu with the hue drawn more often): two epochs
+    on K5's route, one launch a batch and every sample's pixels on the
+    card, equal the host's."""
+    from lecturemath_tpu_torch.train.dataset import LectureNetDataset
+
+    images, truths = _training_frames(tmp_path, 12, 16, truths=True)
+    runs = _card_and_host_epochs(monkeypatch, lambda: LectureNetDataset(
+        images, truths, crop_size=(256, 256), crop_min_fg_prc=0.1,
+        flip_chance=0.5, color_invert_chance=0.5, color_change_chance=0.5,
+        gaussian_noise_chance=0.2, text_mask_expansion=15,
+        weight_expansion=1, seed=9))
+    card_stats, on_card, card_launches = runs["cuda"]
+    host_stats, on_host, host_launches = runs["native"]
+    assert card_launches == (0, 4) and host_launches == (0, 0)
+    assert (card_stats["pixels_card"], card_stats["pixels_host"]) == (32, 0)
+    assert (host_stats["pixels_card"], host_stats["pixels_host"]) == (0, 32)
+    _assert_equal_epochs(on_card, on_host)
+
+
+# --- K5: the batch's colour chain and targets
+
+_MIXES = [(invert, hue, noisy) for invert in (0, 1) for hue in (0, 1)
+          for noisy in (0, 1)]
+
+
+def _k5_inputs(shape, seed):
+    """Board-like crops (bright with dark strokes, some random bytes), a
+    ground truth with ink on the crop's edges, every mix of inversion, hue
+    and noise over the samples, and the noise rows."""
+    batch, height, width = shape
+    rng = np.random.default_rng(seed)
+    images = np.clip(rng.normal(200, 25, (batch, height, width, 3)), 0,
+                     255).astype(np.uint8)
+    images[:, height // 4:height // 2] = rng.integers(
+        0, 256, (batch, height // 2 - height // 4, width, 3), dtype=np.uint8)
+    truths = np.where(rng.random((batch, height, width)) < 0.02, 0,
+                      255).astype(np.uint8)
+    truths[:, height // 2, :] = 0
+    truths[:, 0, ::5] = truths[:, -1, ::3] = 0
+    truths[:, ::4, 0] = truths[:, ::7, -1] = 0
+    params, row = [], 0
+    for k in range(batch):
+        invert, hue, noisy = _MIXES[k % len(_MIXES)]
+        shift = int((rng.random() * 0.9 - 0.45) * 180.0)
+        params.append((invert, hue, shift if hue else 0,
+                       row if noisy else -1))
+        row += noisy
+    noise = rng.standard_normal((row, height, width, 3))
+    return (torch.from_numpy(images), torch.from_numpy(np.array(params,
+                                                                np.int32)),
+            torch.from_numpy(noise), torch.from_numpy(truths))
+
+
+def _assert_bytes_equal(ours, plain):
+    assert sorted(ours) == sorted(plain)
+    for key, value in plain.items():
+        got = ours[key].cpu()
+        assert got.dtype == value.dtype, key
+        np.testing.assert_array_equal(got.numpy().view(np.uint8),
+                                      value.numpy().view(np.uint8),
+                                      err_msg=key)
+
+
+@pytest.mark.parametrize("shape,mask,weight", [
+    ((8, 256, 256), 15, 1),    # the main path: 16-pixel groups
+    ((16, 256, 256), 15, 1),   # every mix twice
+    ((8, 37, 53), 15, 1),      # a pixel a thread; narrower than the ellipse
+    ((3, 100, 70), 3, 2),
+    ((2, 64, 96), 0, 64),
+])
+def test_augment_kernel_equals_plain(cuda, shape, mask, weight):
+    """K5 on the card equals its plain version byte for byte, every output
+    and every mix of inversion, hue and noise, with one launch a call."""
+    images, params, noise, truths = _k5_inputs(shape, seed=sum(shape))
+    options = dict(target=True, text_mask_expansion=mask,
+                   weight_expansion=weight, weight_fg_extra=1.5,
+                   keep_crops=True)
+    plain = augment_batch(images, params, noise, 5.0, truths, **options)
+    before = augment_batch.launches
+    ours = augment_batch(images.to(cuda), params.to(cuda), noise.to(cuda),
+                         5.0, truths.to(cuda), **options)
+    torch.cuda.synchronize()
+    assert augment_batch.launches == before + 1
+    _assert_bytes_equal(ours, plain)
+
+
+def test_augment_kernel_without_ground_truth_or_alignment(cuda):
+    """No ground truth (the reconstruction phase): the image and crops
+    only. Crops that start off a 16-byte boundary take the pixel-a-thread
+    path and give the same bytes."""
+    images, params, noise, _ = _k5_inputs((8, 64, 128), seed=3)
+    plain = augment_batch(images, params, noise, 5.0, keep_crops=True)
+    ours = augment_batch(images.to(cuda), params.to(cuda), noise.to(cuda),
+                         5.0, keep_crops=True)
+    _assert_bytes_equal(ours, plain)
+    flat = torch.zeros(images.numel() + 3, dtype=torch.uint8, device=cuda)
+    shifted = flat[3:].view(images.shape)
+    shifted.copy_(images.to(cuda))
+    ours = augment_batch(shifted, params.to(cuda), noise.to(cuda), 5.0,
+                         keep_crops=True)
+    _assert_bytes_equal(ours, plain)
+
+
+def test_augment_kernel_refuses_an_erosion_past_its_halo(cuda):
+    images, params, noise, truths = _k5_inputs((2, 32, 64), seed=5)
+    with pytest.raises(ValueError, match="at most 64"):
+        augment_batch(images.to(cuda), params.to(cuda), noise.to(cuda), 5.0,
+                      truths.to(cuda), text_mask_expansion=65)
+
+
+def test_median_from_augmented_crops_on_the_card(cuda):
+    """K4 fed K5's crops where they lie (the reconstruction batch's route)
+    equals ``native.median_u8`` on the host's augmented crops, as float32
+    m / 127.5 - 1."""
+    from lecturemath_tpu_torch import native
+
+    images, params, noise, _ = _k5_inputs((8, 256, 256), seed=4)
+    crops = augment_batch(images, params, noise, 5.0,
+                          keep_crops=True)["crops"].numpy()
+    on_card = augment_batch(images.to(cuda), params.to(cuda),
+                            noise.to(cuda), 5.0, keep_crops=True)["crops"]
+    median = median_unit_batch(on_card, 35).cpu().numpy()
+    want = np.stack([native.median_u8(crop, 35) for crop in crops])
+    np.testing.assert_array_equal(
+        median.view(np.uint32),
+        (want.astype(np.float32) / 127.5 - 1.0).view(np.uint32))
 
 
 # --- K2 with the model's cached packed weights, and the serving path: one

@@ -309,7 +309,8 @@ def test_express_lecture_spans(async_drain, monkeypatch):
 
 def test_training_epoch_spans(tmp_path):
     """Four samples in two batches through train_epoch with prefetch: the
-    three data spans a sample under its batch and the upload on the
+    three data spans a sample and the pixels' span a batch (tagged with
+    its route, the host's here) under its batch, and the upload, on the
     prefetch thread; a step and a wait a step on the trainer's thread, and
     one more wait that finds the epoch's end."""
     rgb, binary, _, _ = synthetic_rgb_lecture(seed=0, n_frames=4, height=48,
@@ -337,6 +338,7 @@ def test_training_epoch_spans(tmp_path):
     n = counts(records)
     assert n["data.decode"] == n["data.augment"] == n["data.masks"] == 4
     assert n["data.batch"] == n["train.upload"] == n["train.step"] == 2
+    assert n["data.pixels"] == 2
     assert n["train.wait"] == 3
     main = threading.get_native_id()
     for r in records:
@@ -344,7 +346,10 @@ def test_training_epoch_spans(tmp_path):
             assert r.thread != main
         else:
             assert r.thread == main
-        if r.name in ("data.decode", "data.augment", "data.masks"):
+        if r.name == "data.pixels":
+            assert r.tag == "host"
+        if r.name in ("data.decode", "data.augment", "data.masks",
+                      "data.pixels"):
             assert seq[r.parent].name == "data.batch"
             assert r.cpu_ns is None   # a sample's spans leave it to batch
         else:

@@ -53,3 +53,33 @@ def test_clip_by_global_norm_is_optax_formula():
         for p, u in zip(params, updates):
             np.testing.assert_allclose(p.grad.numpy(), np.asarray(u),
                                        rtol=1e-6)
+
+
+
+@pytest.mark.parametrize("before", [False, True], ids=["off", "on"])
+@pytest.mark.parametrize("phase", ["reconstruction", "binarizer"])
+def test_step_times_convolutions_and_restores_the_flag(phase, before):
+    """The reconstruction phase's forward and backward run with cuDNN's
+    engine timing on, the binarizer's with the flag as the caller set it;
+    the step leaves ``torch.backends.cudnn.benchmark`` as it found it."""
+    from _torch_train_parity import TINY, batch
+    from lecturemath_tpu_torch.models import fcn_lecturenet as tfcn
+    from lecturemath_tpu_torch.train.trainer import Trainer
+
+    model = tfcn.init_weights(
+        tfcn.FCNLectureNet(tfcn.FCNConfig(**TINY),
+                           phase == "reconstruction"),
+        torch.Generator().manual_seed(0))
+    seen = []
+    model.register_forward_hook(
+        lambda *_: seen.append(torch.backends.cudnn.benchmark))
+    trainer = Trainer(model, 0.05, phase=phase, prefetch_depth=0,
+                      device="cpu")
+    kept = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = before
+    try:
+        trainer.step(batch(0))
+        assert seen == [phase == "reconstruction" or before]
+        assert torch.backends.cudnn.benchmark is before
+    finally:
+        torch.backends.cudnn.benchmark = kept
