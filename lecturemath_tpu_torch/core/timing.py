@@ -54,7 +54,9 @@ The spans, by thread:
   ``pixels_card`` and ``pixels_host`` the samples whose colour chain each
   route made.
 - the trainer's: ``train.wait`` (``PrefetchIterator.__next__``) and
-  ``train.step`` (``Trainer.step``).
+  ``train.step`` (``Trainer.step``), with ``train.forward`` (tagged with
+  the phase), ``train.backward`` and ``train.update`` under it (no CPU
+  time).
 """
 
 from __future__ import annotations

@@ -22,13 +22,15 @@ reference's chain draws them (the flips, the crop with its retries on the
 ground truth, the inversion, hue and noise coins, the hue shift and the
 noise's normals) and its crops. Then the batch's pixels at once (``_make``):
 the colour chain, the float image and the ground truth's targets, in one
-launch of kernel K5 on the card where the process sees one
-(``ops/augment.py``; the route of ``utils/image.py median_route``), else by
-K5's plain version on the host; then the median targets of a
-reconstruction batch, from K5's crops where they lie, by kernel K4
-(``ops/median.py``) or on the host a crop at a time. A sample that draws
-the luminosity jitter runs its whole colour chain on the host (its
-``np.power`` is not the card's), and K5 only converts it. Every route gives
+launch of kernel K5 on a card (``ops/augment.py``), else by K5's plain
+version on the host; then the median targets of a batch that has them,
+from K5's crops where they lie, by kernel K4 (``ops/median.py``) or on the
+host a crop at a time. The device is the trainer's where the dataset is
+routed (``route``, which ``run_phase`` calls): the host's route for the
+CPU, that card for a card. A dataset never routed takes the card where the
+process sees one (``pixel_device``). A sample that draws the luminosity
+jitter runs its whole colour chain on the host (its ``np.power`` is not
+the card's), and K5 only converts it. Every route gives
 the same bytes, so the batch is the same either way; ``data_stats`` counts
 the samples whose pixels and median target each route made.
 
@@ -47,11 +49,12 @@ installed, loading one raises ``ImageFormatError``.
 from __future__ import annotations
 
 import os
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from .. import native
 from ..core.config import Config
 from ..core.timing import span
 from ..utils.image import median_route, resize_linear, resize_nearest
@@ -159,6 +162,9 @@ class LectureNetDataset:
         self.reconstruct_median = reconstruct_median
         self.reconstruct_median_k = reconstruct_median_k
         self.rng = np.random.default_rng(seed)
+        # the device the batches are made on (``route``); None: by what the
+        # process sees (``pixel_device``)
+        self.device: Optional[torch.device] = None
 
         self._preloaded: Optional[List] = None
         self.total_foreground = 0
@@ -298,6 +304,16 @@ class LectureNetDataset:
         return ("png", decode_png_color(img),
                 decode_png_gray(gt) if gt is not None else None)
 
+    def route(self, device: Union[str, torch.device]) -> None:
+        """Make the batches' pixels and median targets on ``device``, the
+        trainer's: the host's route for the CPU, that card for a card
+        (``cuda`` without an index: the calling thread's current card, as
+        the trainer's model goes there)."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device = device
+
     # ------------------------------------------------------------ sampling
 
     def sample(self, index: int) -> Dict[str, np.ndarray]:
@@ -362,11 +378,11 @@ class LectureNetDataset:
 
     def _make(self, plans: Sequence[_Plan]):
         """The batch of ``plans``: its pixels in one span ``data.pixels``,
-        tagged with the route (``pixel_device``): staged into one buffer,
+        tagged with the route (``_pixel_device``): staged into one buffer,
         uploaded and made by one launch of kernel K5 on the card (the
         arrays stay there, NHWC tensors), or by K5's plain version on the
         host (numpy arrays); then its median targets (``_medians``)."""
-        device = pixel_device() if self._fits_k5 else None
+        device = self._pixel_device() if self._fits_k5 else None
         stats = self.data_stats
         with span("data.pixels", cpu=False,
                   tag="host" if device is None else "cuda"):
@@ -401,6 +417,13 @@ class LectureNetDataset:
             batch = {key: value.numpy() for key, value in batch.items()}
         return batch
 
+    def _pixel_device(self) -> Optional[torch.device]:
+        """The card the batch's pixels are made on, or None: the host. The
+        routed device's (``route``), else ``pixel_device``'s."""
+        if self.device is None:
+            return pixel_device()
+        return self.device if self.device.type == "cuda" else None
+
     @property
     def _fits_k5(self) -> bool:
         """Whether K5 takes this dataset's erosions (a radius of at most
@@ -410,10 +433,12 @@ class LectureNetDataset:
 
     def _medians(self, crops: torch.Tensor, device):
         """The float32 median targets of the batch's uint8 crops, in one
-        span ``data.median`` tagged with the route that made them
-        (``utils/image.py median_route``): one launch of K4 on the card
-        where the crops lie, or a crop at a time on the host."""
-        route = "cuda" if device is not None else median_route()
+        span ``data.median`` tagged with the route that made them: one
+        launch of K4 on the card where the crops lie (``"cuda"``), or a
+        crop at a time on the host (``utils/image.py median_blur``'s
+        route, ``"native"`` or ``"numpy"``)."""
+        route = "cuda" if device is not None else (
+            "native" if native.available() else "numpy")
         with span("data.median", cpu=False, tag=route):
             if device is not None:
                 self.data_stats["median_card"] += len(crops)
@@ -447,9 +472,10 @@ class _Plan(NamedTuple):
 
 
 def pixel_device() -> Optional[torch.device]:
-    """The card a batch's pixels are made on (kernel K5), or None: the host.
-    The card where the process sees one and was not forked after using it
-    (``utils/image.py median_route``): the calling thread's."""
+    """The card an unrouted dataset makes a batch's pixels on (kernel K5),
+    or None: the host. The card where the process sees one and was not
+    forked after using it (``utils/image.py median_route``): the calling
+    thread's."""
     if median_route() != "cuda":
         return None
     return torch.device("cuda", torch.cuda.current_device())

@@ -16,6 +16,10 @@ Options that carry over:
     inside each step (``fold_batch_norms(differentiable=True)``), the
     BN-free model run on them with ``torch.func.functional_call``; the
     original conv and BN parameters stay the gradient targets;
+  * on a card, a float32 step with the fold and without mesh or clip runs
+    as three CUDA graphs (``_StepGraphs``: the forward with the losses, the
+    backward, the optimizer's step), captured on the second step and
+    replayed after, so its pace is the card's and not the host's;
   * ``clip_norm``: optax's ``clip_by_global_norm``, g / |g| * c where |g| >=
     c (not ``clip_grad_norm_``, which divides by |g| + 1e-6);
   * mixed precision: the model's ``compute_dtype`` (bf16) over f32 master
@@ -221,6 +225,10 @@ class Trainer:
                 self._fold_model = folds[0]
         self._live = (ChannelShards(self.shards, mesh.model_group) if axis
                       else self.model)
+        # the step's CUDA graphs (``_StepGraphs``): None until captured, or
+        # where the step may not run so; False once a capture has failed
+        self._graphs = None if self._graphable(model) else False
+        self._eager_steps = 0
 
     # -------------------------------------------------------------- steps
 
@@ -272,35 +280,68 @@ class Trainer:
 
     def step(self, batch) -> Dict[str, torch.Tensor]:
         """One SGD step on ``batch`` (NHWC as the dataset yields it, or
-        ``to_device``'s), the span ``train.step``. Returns the per-term
-        losses and their total as device tensors."""
+        ``to_device``'s), the span ``train.step``, and inside it the spans
+        ``train.forward`` (the forward and the phase's losses, tagged with
+        the phase), ``train.backward`` and ``train.update`` (the mesh's
+        reductions, the clip and the optimizer's step), none reading the
+        thread's CPU clock. Where ``_graphable``, the steps after the first
+        replay CUDA graphs of those three parts (``_StepGraphs``). Returns
+        the per-term losses and their total as device tensors."""
         with span("train.step"):
             return self._step(batch)
+
+    def _graphable(self, model: FCNLectureNet) -> bool:
+        """Whether the step may run as CUDA graphs: on a card, with the
+        frozen BN folded, in float32, without a mesh, a clip or the
+        reconstruction phase's timed convolutions."""
+        return (self.device.type == "cuda" and self._fold_model is not None
+                and self.mesh is None and self.clip_norm is None
+                and self.phase != "reconstruction"
+                and model.compute_dtype == torch.float32)
 
     def _step(self, batch) -> Dict[str, torch.Tensor]:
         if not isinstance(batch, DeviceBatch):
             batch = self.to_device(batch)
+        graphs = self._graphs
+        if graphs and not graphs.fits(batch, self.optimizer):
+            graphs = self._graphs = None
+        if graphs is None and self._eager_steps:
+            # the first eager step has made cuDNN's handles and the
+            # optimizer's state: what the capture must not make
+            graphs = self._graphs = _StepGraphs.capture(self, batch)
+        if graphs:
+            metrics = graphs.run(batch)
+        else:
+            metrics = self._eager_step(batch)
+            self._eager_steps += 1
+        self.step_count += 1
+        return metrics
+
+    def _eager_step(self, batch: "DeviceBatch") -> Dict[str, torch.Tensor]:
         self._set_modes()
         self.optimizer.zero_grad(set_to_none=True)
         with (_timed_convolutions() if self.phase == "reconstruction"
               else contextlib.nullcontext()):
-            outputs = self.forward(batch["image"].contiguous(
-                memory_format=torch.channels_last))
-            terms = phase_losses(self.phase, outputs, batch,
-                                 self.use_weights, self._group)
-            total = sum(terms.values())
-            (total * self._loss_share if self._axis else total).backward()
+            with span("train.forward", tag=self.phase, cpu=False):
+                outputs = self.forward(batch["image"].contiguous(
+                    memory_format=torch.channels_last))
+                terms = phase_losses(self.phase, outputs, batch,
+                                     self.use_weights, self._group)
+                total = sum(terms.values())
+            with span("train.backward", cpu=False):
+                (total * self._loss_share if self._axis else total).backward()
         metrics = dict(terms, total=total)
-        if self._axis:
-            self._sum_replicated_gradients()
-        if self._group is not None:
-            self._average_gradients()
-            metrics = self._global_means(metrics)
-        if self.clip_norm is not None:
-            clip_by_global_norm_(self._parameters(), self.clip_norm,
-                                 self._global_norm() if self._axis else None)
-        self.optimizer.step()
-        self.step_count += 1
+        with span("train.update", cpu=False):
+            if self._axis:
+                self._sum_replicated_gradients()
+            if self._group is not None:
+                self._average_gradients()
+                metrics = self._global_means(metrics)
+            if self.clip_norm is not None:
+                clip_by_global_norm_(self._parameters(), self.clip_norm,
+                                     self._global_norm() if self._axis
+                                     else None)
+            self.optimizer.step()
         return {key: value.detach() for key, value in metrics.items()}
 
     def _parameters(self):
@@ -480,6 +521,9 @@ class Trainer:
         state = torch.load(path, map_location="cpu" if self._axis
                            else self.device, weights_only=True)
         self.step_count = int(state["step"])
+        if self._graphs:
+            # the optimizer's state is replaced: a new capture reads it
+            self._graphs = None
         if not self._axis:
             self.model.load_state_dict(state["model"])
             self.optimizer.load_state_dict(state["optimizer"])
@@ -499,6 +543,92 @@ class Trainer:
                       for i, name in enumerate(names) if name in part},
             "param_groups": [dict(saved["param_groups"][0],
                                   params=list(range(len(self.shards) * n)))]})
+
+
+class _StepGraphs:
+    """A trainer's step as three CUDA graphs, captured from one step and
+    replayed for every later step whose batch has the same shapes: the
+    forward with the phase's losses (``train.forward``), the backward
+    (``train.backward``) and the optimizer's step (``train.update``), one
+    memory pool. Each step copies its batch into the inputs the capture
+    read. The gradients stay in the pool's buffers, written anew by each
+    backward (the capture started from none), so the step takes no
+    ``zero_grad``. The arithmetic is the eager step's: the same kernels on
+    the same buffers' values."""
+
+    def __init__(self, inputs, metrics, graphs, phase: str, rates):
+        self.inputs, self.metrics, self.phase = inputs, metrics, phase
+        self.forward, self.backward, self.update = graphs
+        self.rates = rates
+
+    @staticmethod
+    def _rates(optimizer):
+        return [(group["lr"], group["momentum"], group["weight_decay"])
+                for group in optimizer.param_groups]
+
+    @classmethod
+    def capture(cls, trainer: "Trainer", batch: "DeviceBatch"):
+        """The graphs of ``trainer``'s step on batches like ``batch``,
+        captured, not yet run; False where the capture fails, and the
+        trainer then steps eagerly."""
+        inputs = DeviceBatch((key, torch.empty_like(value))
+                             for key, value in batch.items())
+        for key, value in batch.items():
+            inputs[key].copy_(value)
+        trainer._set_modes()
+        trainer.optimizer.zero_grad(set_to_none=True)
+        graphs = [torch.cuda.CUDAGraph() for _ in range(3)]
+        pool = torch.cuda.graph_pool_handle()
+        # the prefetch thread goes on making batches on the default stream
+        # meanwhile: only this thread's calls must be capture-safe
+        mode = "thread_local"
+        try:
+            with torch.cuda.graph(graphs[0], pool=pool,
+                                  capture_error_mode=mode):
+                outputs = trainer.forward(inputs["image"].contiguous(
+                    memory_format=torch.channels_last))
+                terms = phase_losses(trainer.phase, outputs, inputs,
+                                     trainer.use_weights)
+                total = sum(terms.values())
+            with torch.cuda.graph(graphs[1], pool=pool,
+                                  capture_error_mode=mode):
+                total.backward()
+            with torch.cuda.graph(graphs[2], pool=pool,
+                                  capture_error_mode=mode):
+                trainer.optimizer.step()
+        except RuntimeError as error:
+            import warnings
+
+            warnings.warn(f"the training step runs eagerly: its CUDA graph "
+                          f"capture failed ({error})")
+            trainer.optimizer.zero_grad(set_to_none=True)
+            return False
+        metrics = {key: value.detach()
+                   for key, value in dict(terms, total=total).items()}
+        return cls(inputs, metrics, graphs, trainer.phase,
+                   cls._rates(trainer.optimizer))
+
+    def fits(self, batch: "DeviceBatch", optimizer) -> bool:
+        """Whether ``batch`` and the optimizer's rates are those captured."""
+        return (batch.keys() == self.inputs.keys() and all(
+            value.shape == self.inputs[key].shape
+            and value.dtype == self.inputs[key].dtype
+            and value.stride() == self.inputs[key].stride()
+            for key, value in batch.items())
+            and self._rates(optimizer) == self.rates)
+
+    def run(self, batch: "DeviceBatch") -> Dict[str, torch.Tensor]:
+        """One step on ``batch``: its per-term losses and their total, as
+        device tensors of their own."""
+        with span("train.forward", tag=self.phase, cpu=False):
+            for key, value in batch.items():
+                self.inputs[key].copy_(value)
+            self.forward.replay()
+        with span("train.backward", cpu=False):
+            self.backward.replay()
+        with span("train.update", cpu=False):
+            self.update.replay()
+        return {key: value.clone() for key, value in self.metrics.items()}
 
 
 # ---------------------------------------------------------------- phases
@@ -579,7 +709,9 @@ def run_phase(config: Config, phase_name: str, dataset,
     frozen on any warm start), SGD over epochs with periodic .bak
     checkpoints and a resume file, save the final state to the phase's
     configured output path. Runs on ``device``: ``cuda`` unless the caller
-    passes ``cpu``.
+    passes ``cpu``; ``dataset`` (a ``LectureNetDataset``) is routed there
+    (``LectureNetDataset.route``), so its batches are made on the same
+    device.
 
     ``mesh_spec``: training over a mesh, one data position a process (its
     devices, or on a model axis that spans processes a part of one), the
@@ -656,6 +788,8 @@ def run_phase(config: Config, phase_name: str, dataset,
                       prefetch_depth=config.get_int("TRAIN_PREFETCH_BATCHES",
                                                     2),
                       device=device, mesh=mesh)
+    # the batches' pixels and medians are made on the trainer's device
+    dataset.route(trainer.device)
 
     def write(save) -> None:
         """``save()`` on every process (a model axis gathers its shards;

@@ -1148,6 +1148,56 @@ def test_one_rank_nccl_training_equals_meshless(cuda, monkeypatch):
                                        atol=1e-6)
 
 
+def test_step_graphs_equal_the_eager_steps(cuda):
+    """The text-detector step with the frozen BN folded, replayed as CUDA
+    graphs (captured on the second step, captured again when the crop
+    size changes), gives the eager steps' losses and parameters over 6
+    steps with momentum, within rtol 1e-5: the same kernels, whose
+    float32 sums cuDNN may take in another order between runs."""
+    from lecturemath_tpu_torch.train.trainer import Trainer
+
+    def batch(seed, size):
+        raw = _training_batch(seed, size)
+        return {key: np.ascontiguousarray(
+            np.moveaxis(value, 1, -1).astype(np.float32))
+            for key, value in raw.items()}
+
+    batches = [batch(k, 64) for k in range(4)] + [batch(k, 32)
+                                                  for k in (4, 5)]
+
+    def steps(graphs):
+        model = _training_model()
+        gen = torch.Generator().manual_seed(1)
+        for module in model.modules():
+            if isinstance(module, torch.nn.BatchNorm2d):
+                module.running_mean.uniform_(-0.2, 0.2, generator=gen)
+                module.running_var.uniform_(0.5, 1.5, generator=gen)
+        trainer = Trainer(model, 0.05, momentum=0.9, phase="text_detector",
+                          freeze_bn=True, fold_frozen_bn=True,
+                          prefetch_depth=0, device=cuda)
+        if not graphs:
+            trainer._graphs = False
+        losses, captured = [], []
+        for b in batches:
+            metrics = trainer.step(b)
+            losses.append({k: v.item() for k, v in metrics.items()})
+            captured.append(bool(trainer._graphs))
+        return losses, trainer.model.state_dict(), captured
+
+    eager_losses, eager_state, eager_captured = steps(False)
+    graph_losses, graph_state, graph_captured = steps(True)
+    assert not any(eager_captured)
+    assert graph_captured == [False, True, True, True, True, True]
+    assert eager_losses[0].keys() == {"text_bce", "bin_bce", "rec_mse",
+                                      "total"}
+    for got, want in zip(graph_losses, eager_losses):
+        np.testing.assert_allclose([got[k] for k in want],
+                                   list(want.values()), rtol=1e-5)
+    for key, value in eager_state.items():
+        torch.testing.assert_close(graph_state[key], value, rtol=1e-5,
+                                   atol=1e-6)
+
+
 # ------------------------------------------- device worker and device ops
 
 _WORKER_WIDTHS = {"DOWN_CONV_FILTERS": (8, 8, 16, 16, 32),

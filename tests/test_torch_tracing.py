@@ -1,8 +1,9 @@
 """The port's spans (lecturemath_tpu_torch/core/timing.py): recorded only
 while a torch profiler traces the process, on every thread, on the exported
 trace's clock; ``Binarizer.stream_stats`` as one output of the stage-01
-spans; the spans of an express lecture and of a training epoch, on the CPU
-at tiny widths; and the spans in ``-trace``'s trace.json."""
+spans; the spans of an express lecture, of a training epoch and of a
+training step, on the CPU at tiny widths; and the spans in ``-trace``'s
+trace.json."""
 
 import json
 import os
@@ -39,6 +40,8 @@ TINY = dict(down_filters=(2, 3, 4, 5, 6), mid_filters=6,
             upsample_filters=(2, 3, 4, 5, 6), up_filters=(2, 3, 4, 5, 6),
             pixel_features=(4, 3), kernel_size=3, pixel_kernel_size=3)
 STREAM_KEYS = {"source_s", "dispatch_s", "drain_s", "downscale_s"}
+# the spans inside a training step, in their order
+STEP_PARTS = ("train.forward", "train.backward", "train.update")
 # stream_stats key -> the span whose seconds it sums
 STREAM_SPANS = {"source_s": "stage01.source", "dispatch_s": "stage01.dispatch",
                 "drain_s": "stage01.drain"}
@@ -352,8 +355,49 @@ def test_training_epoch_spans(tmp_path):
                       "data.pixels"):
             assert seq[r.parent].name == "data.batch"
             assert r.cpu_ns is None   # a sample's spans leave it to batch
+        elif r.name in STEP_PARTS:
+            assert seq[r.parent].name == "train.step"
+            assert r.cpu_ns is None   # a step's parts leave it to the step
         else:
             assert r.cpu_ns >= 0
+
+
+@pytest.mark.parametrize("phase", ["text_detector", "reconstruction"])
+def test_a_step_records_its_forward_backward_and_update(phase):
+    """One CPU step under the profiler: ``train.forward`` (tagged with the
+    phase), ``train.backward`` and ``train.update``, once each, in that
+    order inside ``train.step`` on the trainer's thread, none reading the
+    CPU clock; none without a profiler."""
+    rng = np.random.default_rng(0)
+    batch = {"image": rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32),
+             "median": rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)}
+    batch["target"] = (rng.random((2, 32, 32, 1)) < 0.2).astype(np.float32)
+    batch["text_mask"] = 1.0 - batch["target"]
+    reconstruction = phase == "reconstruction"
+    model = tfcn.init_weights(
+        tfcn.FCNLectureNet(tfcn.FCNConfig(**TINY),
+                           reconstruction_mode=reconstruction),
+        torch.Generator().manual_seed(0))
+    trainer = Trainer(model, 0.01, phase=phase, freeze_bn=not reconstruction,
+                      fold_frozen_bn=not reconstruction, prefetch_depth=0,
+                      device="cpu")
+    batch = trainer.to_device(batch)
+    trainer.step(batch)
+    assert taken() == []
+    with traced():
+        trainer.step(batch)
+    records = taken()
+    assert [r.name for r in records] == [*STEP_PARTS, "train.step"]
+    seq = {r.seq: r for r in records}
+    step = records[-1]
+    main = threading.get_native_id()
+    for r in records[:-1]:
+        assert r.parent == step.seq and seq[r.parent].name == "train.step"
+        assert r.thread == main and r.cpu_ns is None
+        assert step.start_ns <= r.start_ns <= r.end_ns <= step.end_ns
+        assert r.tag == (phase if r.name == "train.forward" else None)
+    assert records[0].end_ns <= records[1].start_ns
+    assert records[1].end_ns <= records[2].start_ns
 
 
 @pytest.mark.parametrize("route", ["native", "numpy"])
