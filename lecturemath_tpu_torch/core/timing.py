@@ -25,7 +25,8 @@ The spans, by thread:
 - the lecture's (``pipeline/express.py run_lecture``): ``lecture`` over the
   call; ``stage02.track`` a drained batch, with ``stage02.extract`` and
   ``stage02.match`` a frame under it (``CCTracker.add_frame``; no CPU
-  time);
+  time; ``data/cc.py extract_stats`` counts the frames labelled by runs
+  and by the scipy fallback);
   ``stage03``, ``stage04``, ``stage05``.
 - the stage-01 stream's consumer (``pipeline/binarize.py stream_source``):
   ``stage01.source``, ``stage01.downscale``, ``stage01.dispatch`` and

@@ -10,6 +10,7 @@ and the hot pairwise-overlap path lives in ops/overlap.py as batched array ops.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -17,6 +18,21 @@ import numpy as np
 from scipy import ndimage
 
 MIN_CC_PIXELS = 20  # noise floor, matches reference Labeler.MIN_CC_PIXELS (labeler.py:22)
+
+# Frames ``extract_ccs`` labelled by runs of ink (the native call) and by
+# scipy (no native library, or labels given), the runs the native call found
+# (runs a frame is runs / frames_runs) and the components both found, before
+# the size filter. Read it as a delta around the work of interest.
+extract_stats = dict.fromkeys(("frames_runs", "frames_scipy", "runs", "ccs"),
+                              0)
+_extract_stats_lock = threading.Lock()
+
+
+def _count_frame(route: str, runs: int, ccs: int) -> None:
+    with _extract_stats_lock:
+        extract_stats[route] += 1
+        extract_stats["runs"] += runs
+        extract_stats["ccs"] += ccs
 
 
 @dataclass
@@ -180,10 +196,12 @@ def extract_ccs(binary: np.ndarray, ages: Optional[np.ndarray] = None,
     """Label a binary frame (4-connectivity) and extract per-CC features.
 
     Replaces the reference's scipy label + ctypes C kernel CC_AgeBoundaries
-    (labeler.py:117-190, accessmath_lib.c:357-413). Fast path: one fused
-    C++ label+stats call (native/lecturemath_native.cpp); fallback:
+    (labeler.py:117-190, accessmath_lib.c:357-413). Fast path: one C++ call
+    labels the frame by its runs of ink and writes each kept CC's crop
+    (native/lecturemath_native.cpp ``cc_runs_label``); fallback:
     vectorized scipy find_objects/bincount. Optionally consumes
     pre-computed labels from the device labeling kernel (ops/cc_label.py).
+    ``extract_stats`` counts the frames of each route.
     """
     if labels is None and use_native:
         from .. import native
@@ -193,6 +211,7 @@ def extract_ccs(binary: np.ndarray, ages: Optional[np.ndarray] = None,
 
     if labels is None:
         labels, n_labels = ndimage.label(binary)
+    _count_frame("frames_scipy", 0, n_labels)
     if n_labels == 0:
         return []
 
@@ -225,20 +244,26 @@ def _extract_ccs_native(binary: np.ndarray, ages: Optional[np.ndarray],
                         filter_small: bool, min_pixels: int) -> List[CC]:
     from .. import native
 
-    labels, stats, min_ages = native.label_and_stats(binary, ages)
+    min_kept = min_pixels if filter_small else 0
+    n_found, n_runs, stats, min_ages, crops = native.label_runs(
+        binary, ages, min_kept)
+    _count_frame("frames_runs", n_runs, n_found)
     components = []
     # tolist() converts the whole stats table to python ints in one C pass —
     # per-value int() in a genexpr showed up hot at full-lecture scale
-    stats_rows = stats.tolist()
-    ages_rows = min_ages.tolist() if ages is not None else None
-    for cc_id, (min_x, max_x, min_y, max_y, size) in enumerate(stats_rows):
-        if filter_small and size < min_pixels:
+    ages_rows = min_ages.tolist() if min_ages is not None else None
+    offset = 0
+    for cc_id, (min_x, max_x, min_y, max_y, size) in enumerate(stats.tolist()):
+        if size < min_kept:
             continue
-        crop = (labels[min_y:max_y + 1, min_x:max_x + 1] == cc_id + 1)
-        age = float(ages_rows[cc_id]) if ages_rows is not None else 0.0
-        # bool -> uint8 via view (same byte layout) skips the astype copy
-        components.append(CC(cc_id, min_x, max_x, min_y, max_y, size,
-                             crop.view(np.uint8) * 255, age, age))
+        height, width = max_y - min_y + 1, max_x - min_x + 1
+        end = offset + height * width
+        # copied out, so that no crop keeps the frame's packed crops alive
+        crop = crops[offset:end].reshape(height, width).copy()
+        offset = end
+        age = ages_rows[cc_id] if ages_rows is not None else 0.0
+        components.append(CC(cc_id, min_x, max_x, min_y, max_y, size, crop,
+                             age, age))
     return components
 
 

@@ -60,9 +60,11 @@ def _load() -> Optional[ctypes.CDLL]:
     u8p = ctypes.POINTER(ctypes.c_uint8)
     f32p = ctypes.POINTER(ctypes.c_float)
 
-    lib.label_and_stats.argtypes = [u8p, ctypes.c_int32, ctypes.c_int32,
-                                    f32p, i32p, i32p, f32p, ctypes.c_int32]
-    lib.label_and_stats.restype = ctypes.c_int32
+    lib.cc_runs_label.argtypes = [u8p, ctypes.c_int32, ctypes.c_int32, f32p,
+                                  ctypes.c_int32, ctypes.c_int32, i64p]
+    lib.cc_runs_label.restype = ctypes.c_void_p
+    lib.cc_runs_take.argtypes = [ctypes.c_void_p, i32p, f32p, u8p]
+    lib.cc_runs_take.restype = None
 
     lib.batch_mask_overlap.argtypes = [u8p, i64p, i32p, u8p, i64p, i32p,
                                        i32p, ctypes.c_int64, i64p]
@@ -99,34 +101,52 @@ def _ptr(array: np.ndarray, ctype):
     return array.ctypes.data_as(ctypes.POINTER(ctype))
 
 
-def label_and_stats(binary: np.ndarray, ages: Optional[np.ndarray] = None,
-                    max_components: int = 1 << 16):
-    """Label a binary frame + per-CC stats in one native call.
+def label_runs(binary: np.ndarray, ages: Optional[np.ndarray] = None,
+               min_pixels: int = 0, max_components: int = 1 << 16):
+    """Connected components (4-connectivity) of a binary frame, labelled by
+    its runs of ink, with each kept component's crop, in one native call.
 
-    Returns (labels int32 [H,W], stats int32 [n,5] = min_x,max_x,min_y,
-    max_y,size, min_ages float32 [n]).
+    Returns (components found, runs found, stats int32 [n, 5] = min_x,
+    max_x, min_y, max_y, size of the first n = min(found, max_components)
+    components in scipy.ndimage.label's order, their min ages float32 [n]
+    (None without ``ages``), crops uint8: the 0/255 crop of each of those n
+    with at least ``min_pixels`` pixels, row-major, packed in order). Makes
+    no frame-sized buffer and keeps no state; releases the interpreter lock.
     """
     lib = get_lib()
     assert lib is not None, "native library unavailable"
     binary = np.ascontiguousarray(binary, dtype=np.uint8)
+    if binary.ndim != 2:
+        raise ValueError(f"binary frame must be 2-D, got {binary.shape}")
     h, w = binary.shape
-    labels = np.empty((h, w), dtype=np.int32)
-    stats = np.empty((max_components, 5), dtype=np.int32)
-    min_ages = np.empty(max_components, dtype=np.float32)
-
     if ages is not None:
         ages = np.ascontiguousarray(ages, dtype=np.float32)
+        if ages.shape != binary.shape:
+            raise ValueError(f"ages {ages.shape} differ from the frame's "
+                             f"{binary.shape}")
         ages_ptr = _ptr(ages, ctypes.c_float)
     else:
-        ages_ptr = ctypes.cast(None, ctypes.POINTER(ctypes.c_float))
+        ages_ptr = None
 
-    count = lib.label_and_stats(_ptr(binary, ctypes.c_uint8), h, w, ages_ptr,
-                                _ptr(labels, ctypes.c_int32),
-                                _ptr(stats, ctypes.c_int32),
-                                _ptr(min_ages, ctypes.c_float),
-                                max_components)
-    count = min(count, max_components)
-    return labels, stats[:count].copy(), min_ages[:count].copy()
+    info = np.empty(4, dtype=np.int64)
+    result = lib.cc_runs_label(_ptr(binary, ctypes.c_uint8), h, w, ages_ptr,
+                               max_components, min_pixels,
+                               _ptr(info, ctypes.c_int64))
+    if not result:
+        raise MemoryError("native CC labeling ran out of memory")
+    n_found, n_runs, n_stored, crop_bytes = info.tolist()
+    try:
+        stats = np.empty((n_stored, 5), dtype=np.int32)
+        min_ages = (np.empty(n_stored, dtype=np.float32)
+                    if ages is not None else None)
+        crops = np.empty(crop_bytes, dtype=np.uint8)
+    except MemoryError:
+        lib.cc_runs_take(result, None, None, None)
+        raise
+    lib.cc_runs_take(result, _ptr(stats, ctypes.c_int32),
+                     None if min_ages is None else _ptr(min_ages, ctypes.c_float),
+                     _ptr(crops, ctypes.c_uint8))
+    return n_found, n_runs, stats, min_ages, crops
 
 
 class PackedMasks:

@@ -4,9 +4,10 @@
 // Replaces the reference's C helpers (reference: accessmath_lib.c — ctypes
 // CC_AgeBoundaries / adapthisteq / combine_results) with a C++ library that
 // fuses the whole host-side CC path:
-//   * label_and_stats: one call does union-find connected-component labeling
-//     (4-connectivity, scipy-compatible raster numbering) AND per-component
-//     bbox/size/min-age extraction, instead of scipy.label + a second pass
+//   * cc_runs_label / cc_runs_take: connected-component labeling by runs of
+//     ink (4-connectivity, scipy-compatible raster numbering), each
+//     component's bbox/size/min age, and each kept component's crop, in
+//     one call that makes no frame-sized buffer
 //   * batch_mask_overlap: matched-pixel counts for a list of candidate CC
 //     pairs over packed mask crops (the tracker / grouping hot loop)
 //   * render_masks: paint packed CC crops back onto a frame
@@ -23,125 +24,208 @@
 #include <algorithm>
 #include <cstdint>
 #include <cstring>
+#include <new>
 #include <vector>
+
+static_assert(__BYTE_ORDER__ == __ORDER_LITTLE_ENDIAN__,
+              "the run scan reads a row's bytes a little-endian word at a time");
 
 namespace {
 
-struct UnionFind {
-    std::vector<int32_t> parent;
-
-    explicit UnionFind(size_t n) : parent(n) {
-        for (size_t i = 0; i < n; ++i) parent[i] = static_cast<int32_t>(i);
-    }
-
-    int32_t find(int32_t x) {
-        while (parent[x] != x) {
-            parent[x] = parent[parent[x]];
-            x = parent[x];
-        }
-        return x;
-    }
-
-    void unite(int32_t a, int32_t b) {
-        a = find(a);
-        b = find(b);
-        if (a == b) return;
-        if (a < b) parent[b] = a; else parent[a] = b;
-    }
+// One frame's labelled components, held between cc_runs_label and
+// cc_runs_take.
+struct CCRuns {
+    std::vector<int32_t> stats;   // [stored * 5] min_x, max_x, min_y, max_y, size
+    std::vector<float> min_ages;  // [stored] where ages were given
+    std::vector<uint8_t> crops;   // kept components' crops, 0/255, packed
 };
+
+inline uint64_t load_word(const uint8_t* p) {
+    uint64_t v;
+    std::memcpy(&v, p, sizeof v);
+    return v;
+}
+
+// The first nonzero byte of the row at or after x (width if none).
+inline int32_t next_ink(const uint8_t* row, int32_t x, int32_t width) {
+    // a board row is mostly background: test 32 bytes a step first
+    for (; x + 32 <= width; x += 32) {
+        if (load_word(row + x) | load_word(row + x + 8) |
+            load_word(row + x + 16) | load_word(row + x + 24)) break;
+    }
+    for (; x + 8 <= width; x += 8) {
+        const uint64_t v = load_word(row + x);
+        if (v) return x + (__builtin_ctzll(v) >> 3);
+    }
+    while (x < width && !row[x]) ++x;
+    return x;
+}
+
+// The first zero byte of the row at or after x (width if none).
+inline int32_t next_background(const uint8_t* row, int32_t x, int32_t width) {
+    constexpr uint64_t ones = 0x0101010101010101ull;
+    constexpr uint64_t highs = 0x8080808080808080ull;
+    for (; x + 8 <= width; x += 8) {
+        const uint64_t v = load_word(row + x);
+        // the lowest set bit marks the lowest zero byte exactly (a borrow
+        // can only mark bytes above it)
+        const uint64_t zero = (v - ones) & ~v & highs;
+        if (zero) return x + (__builtin_ctzll(zero) >> 3);
+    }
+    while (x < width && row[x]) ++x;
+    return x;
+}
+
+inline int32_t find_root(int32_t* parent, int32_t x) {
+    while (parent[x] != x) {
+        parent[x] = parent[parent[x]];
+        x = parent[x];
+    }
+    return x;
+}
 
 }  // namespace
 
 extern "C" {
 
-// Label a binary image (nonzero = foreground, 4-connectivity) and emit
-// per-component stats in one pass.
+// Label a binary frame (nonzero = ink, 4-connectivity) by its runs of ink.
 //
-// labels_out:  int32 [h*w], 0 = background, components numbered 1..n in
-//              raster order of their first pixel (scipy.ndimage.label order)
-// stats_out:   int32 [max_components * 5] = min_x, max_x, min_y, max_y, size
-// ages_out:    float [max_components] = min age per component (ages may be null)
-// Returns the component count (clamped to max_components; extra components
-// are labeled but their stats are dropped).
-int32_t label_and_stats(const uint8_t* binary, int32_t height, int32_t width,
-                        const float* ages, int32_t* labels_out,
-                        int32_t* stats_out, float* ages_out,
-                        int32_t max_components) {
-    const int64_t n_pixels = static_cast<int64_t>(height) * width;
+// Each run is unioned with the runs of the row above that share a column
+// with it (diagonal contact does not join). A set's root is its lowest run,
+// so numbering the roots 1..n in run order numbers the components in the
+// raster order of their first pixel (scipy.ndimage.label's order). Every
+// component counts; only the first max_components get stats. Each of those
+// with at least min_pixels pixels is kept: its runs are painted 255 into
+// its own zeroed crop (other components inside its box stay 0), the crops
+// packed row-major in label order.
+//
+// info_out: int64 [4] = components, runs, stored components (at most
+// max_components), crop bytes. Returns the result, which cc_runs_take
+// copies out and frees, or null when memory runs out. Keeps no state
+// between calls, so threads may call it at once.
+void* cc_runs_label(const uint8_t* binary, int32_t height, int32_t width,
+                    const float* ages, int32_t max_components,
+                    int32_t min_pixels, int64_t* info_out) {
+    CCRuns* out = nullptr;
+    try {
+        out = new CCRuns;
+        std::vector<int32_t> run_x0, run_end, parent;  // run_end exclusive
+        std::vector<int32_t> row_first(static_cast<size_t>(height) + 1);
+        run_x0.reserve(4096);
+        run_end.reserve(4096);
+        parent.reserve(4096);
 
-    // pass 1: provisional labels with union on left/up neighbors
-    std::vector<int32_t> provisional(n_pixels, -1);
-    UnionFind uf(0);
-    uf.parent.reserve(1024);
-    int32_t next_label = 0;
+        // pass 1: each row's runs, unioned with the overlapping runs above
+        int32_t above = 0;  // the first run of the row above
+        for (int32_t y = 0; y < height; ++y) {
+            const uint8_t* row = binary + static_cast<int64_t>(y) * width;
+            const int32_t first = static_cast<int32_t>(run_x0.size());
+            row_first[y] = first;
+            int32_t j = above;
+            for (int32_t x = next_ink(row, 0, width); x < width;
+                 x = next_ink(row, x, width)) {
+                const int32_t start = x;
+                x = next_background(row, x, width);
+                const int32_t run = static_cast<int32_t>(run_x0.size());
+                run_x0.push_back(start);
+                run_end.push_back(x);
+                parent.push_back(run);
+                // runs above that end before this one starts cannot touch
+                // it or any later run of this row
+                while (j < first && run_end[j] <= start) ++j;
+                for (int32_t k = j; k < first && run_x0[k] < x; ++k) {
+                    const int32_t a = find_root(parent.data(), k);
+                    const int32_t b = find_root(parent.data(), run);
+                    if (a < b) parent[b] = a; else parent[a] = b;
+                }
+            }
+            above = first;
+        }
+        const int32_t n_runs = static_cast<int32_t>(run_x0.size());
+        row_first[height] = n_runs;
 
-    for (int32_t y = 0; y < height; ++y) {
-        const uint8_t* row = binary + static_cast<int64_t>(y) * width;
-        int32_t* prov_row = provisional.data() + static_cast<int64_t>(y) * width;
-        const int32_t* prov_up =
-            (y > 0) ? prov_row - width : nullptr;
-        for (int32_t x = 0; x < width; ++x) {
-            if (!row[x]) continue;
-            int32_t left = (x > 0 && row[x - 1]) ? prov_row[x - 1] : -1;
-            int32_t up = (prov_up && binary[(static_cast<int64_t>(y) - 1) * width + x])
-                             ? prov_up[x] : -1;
-            if (left < 0 && up < 0) {
-                prov_row[x] = next_label;
-                uf.parent.push_back(next_label);
-                ++next_label;
-            } else if (left >= 0 && up >= 0) {
-                prov_row[x] = left;
-                uf.unite(left, up);
-            } else {
-                prov_row[x] = (left >= 0) ? left : up;
+        // pass 2: number the roots in run order; stats of the stored ones
+        std::vector<int32_t> label(n_runs);
+        std::vector<int32_t>& stats = out->stats;
+        std::vector<float>& min_ages = out->min_ages;
+        int32_t n_components = 0;
+        for (int32_t y = 0; y < height; ++y) {
+            for (int32_t i = row_first[y]; i < row_first[y + 1]; ++i) {
+                const int32_t root = find_root(parent.data(), i);
+                if (root == i) {
+                    label[i] = ++n_components;
+                    if (n_components <= max_components) {
+                        stats.insert(stats.end(),
+                                     {run_x0[i], run_end[i] - 1, y, y, 0});
+                        if (ages) min_ages.push_back(3.0e38f);
+                    }
+                } else {
+                    label[i] = label[root];
+                }
+                const int32_t c = label[i] - 1;
+                if (c >= max_components) continue;
+                int32_t* s = stats.data() + static_cast<int64_t>(c) * 5;
+                s[0] = std::min(s[0], run_x0[i]);
+                s[1] = std::max(s[1], run_end[i] - 1);
+                s[3] = y;
+                s[4] += run_end[i] - run_x0[i];
+                if (ages) {
+                    const float* a = ages + static_cast<int64_t>(y) * width;
+                    float m = min_ages[c];
+                    for (int32_t x = run_x0[i]; x < run_end[i]; ++x)
+                        if (a[x] < m) m = a[x];
+                    min_ages[c] = m;
+                }
             }
         }
+        const int32_t n_stored = std::min(n_components, max_components);
+
+        // pass 3: each kept component's runs painted into its own crop
+        std::vector<int64_t> offset(n_stored, -1);
+        int64_t crop_bytes = 0;
+        for (int32_t c = 0; c < n_stored; ++c) {
+            const int32_t* s = stats.data() + static_cast<int64_t>(c) * 5;
+            if (s[4] < min_pixels) continue;
+            offset[c] = crop_bytes;
+            crop_bytes += static_cast<int64_t>(s[1] - s[0] + 1) * (s[3] - s[2] + 1);
+        }
+        out->crops.assign(crop_bytes, 0);
+        for (int32_t y = 0; y < height; ++y) {
+            for (int32_t i = row_first[y]; i < row_first[y + 1]; ++i) {
+                const int32_t c = label[i] - 1;
+                if (c >= n_stored || offset[c] < 0) continue;
+                const int32_t* s = stats.data() + static_cast<int64_t>(c) * 5;
+                const int64_t crop_width = s[1] - s[0] + 1;
+                std::memset(out->crops.data() + offset[c] +
+                                (y - s[2]) * crop_width + (run_x0[i] - s[0]),
+                            255, run_end[i] - run_x0[i]);
+            }
+        }
+
+        info_out[0] = n_components;
+        info_out[1] = n_runs;
+        info_out[2] = n_stored;
+        info_out[3] = crop_bytes;
+        return out;
+    } catch (const std::bad_alloc&) {
+        delete out;
+        return nullptr;
     }
+}
 
-    // pass 2: compact roots to 1..n in raster-first-pixel order + stats
-    std::vector<int32_t> compact(next_label, 0);
-    int32_t n_components = 0;
-
-    for (int64_t i = 0; i < n_pixels; ++i) {
-        int32_t prov = provisional[i];
-        if (prov < 0) {
-            labels_out[i] = 0;
-            continue;
-        }
-        int32_t root = uf.find(prov);
-        int32_t label = compact[root];
-        if (label == 0) {
-            label = ++n_components;
-            compact[root] = label;
-            if (label <= max_components) {
-                int32_t* stats = stats_out + static_cast<int64_t>(label - 1) * 5;
-                stats[0] = width;   // min_x
-                stats[1] = -1;      // max_x
-                stats[2] = height;  // min_y
-                stats[3] = -1;      // max_y
-                stats[4] = 0;       // size
-                if (ages_out) ages_out[label - 1] = 3.0e38f;
-            }
-        }
-        labels_out[i] = label;
-
-        if (label <= max_components) {
-            const int32_t x = static_cast<int32_t>(i % width);
-            const int32_t y = static_cast<int32_t>(i / width);
-            int32_t* stats = stats_out + static_cast<int64_t>(label - 1) * 5;
-            if (x < stats[0]) stats[0] = x;
-            if (x > stats[1]) stats[1] = x;
-            if (y < stats[2]) stats[2] = y;
-            if (y > stats[3]) stats[3] = y;
-            ++stats[4];
-            if (ages && ages_out) {
-                const float age = ages[i];
-                if (age < ages_out[label - 1]) ages_out[label - 1] = age;
-            }
-        }
-    }
-
-    return n_components;
+// Copy cc_runs_label's stats (int32 [stored * 5]), min ages (float
+// [stored], where ages were given) and packed crops into the caller's
+// buffers, each skipped where null, and free the result.
+void cc_runs_take(void* result, int32_t* stats_out, float* ages_out,
+                  uint8_t* crops_out) {
+    CCRuns* runs = static_cast<CCRuns*>(result);
+    if (stats_out)
+        std::copy(runs->stats.begin(), runs->stats.end(), stats_out);
+    if (ages_out)
+        std::copy(runs->min_ages.begin(), runs->min_ages.end(), ages_out);
+    if (crops_out)
+        std::copy(runs->crops.begin(), runs->crops.end(), crops_out);
+    delete runs;
 }
 
 // Matched-pixel counts for candidate CC pairs.
